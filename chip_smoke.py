@@ -1,0 +1,587 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. build   -- nvcc builds the three kernels from src/repro_torch/csrc
+              into build/repro_torch (parallel, one nvcc per source)
+2. kernels -- each kernel against its plain PyTorch version on the card,
+              bitwise, on random inputs that force its edge cases
+3. parity  -- compress on the card == compress on the CPU, byte for byte,
+              on a vortex-street field and on a field whose verify
+              rounds fire; card blobs decode equal on both devices
+4. main    -- compress -> decompress at full size: the SCF analogue
+              vortex_street(T=120, H=100, W=225) and an archive field
+              vortex_street(T=64, H=512, W=512), with the launches of
+              every kernel counted over each run, the pointwise bound
+              and FC_t = FC_s = 0 checked
+              plus a traced run with host-clock seconds per stage and a
+              torch.profiler run with the device's busy share
+5. table   -- each kernel on the inputs the main path gave it: equality
+              with its plain version, time, plain time and bound
+
+The last lines are a {"kernels": [...]} JSON line, the card's name and
+power limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX
+or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f64 rate
+# outside the tensor cores (the stepper's scalar f64 cannot use them)
+HBM_BYTES_PER_S = 3.35e12
+F64_FLOPS = 34e12
+
+SIZES = {
+    "k1": (8, 256, 256),
+    "k2": 1 << 20,
+    "k3": (128, 192),
+    "parity": (8, 128, 192),
+    "main": [(120, 100, 225), (64, 512, 512)],
+}
+
+KERNELS = [
+    # name, module, wrapper attribute, source, replaced Pallas function
+    ("lorenzo_residual", "lorenzo", "lorenzo_residual",
+     "src/repro_torch/csrc/lorenzo.cu", "src/repro/kernels/lorenzo/kernel.py:68"),
+    ("face_crossed", "cptest", "face_crossed",
+     "src/repro_torch/csrc/cptest.cu", "src/repro/kernels/cptest/kernel.py:102"),
+    ("sl_step", "semilagrange", "sl_step",
+     "src/repro_torch/csrc/semilagrange.cu",
+     "src/repro/kernels/semilagrange/kernel.py:106"),
+]
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def modules():
+    from repro_torch.kernels.cptest import kernel as k2, ref as r2
+    from repro_torch.kernels.lorenzo import kernel as k1, ref as r1
+    from repro_torch.kernels.semilagrange import kernel as k3, ref as r3
+    return {"lorenzo": (k1, r1), "cptest": (k2, r2), "semilagrange": (k3, r3)}
+
+
+def wrappers():
+    """{name: the kernel wrapper function whose ``launches`` counts}."""
+    mods = modules()
+    return {name: getattr(mods[mod][0], attr)
+            for name, mod, attr, _, _ in KERNELS}
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` over ``reps`` runs, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def max_abs_err(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) \
+        if a.numel() else 0.0
+
+
+# ----------------------------------------------------------------------
+# phase 1: build
+# ----------------------------------------------------------------------
+
+def phase_build():
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    secs = kernels.build_all()
+    total = time.perf_counter() - t0
+    say(f"build: {total:.2f} s total, per source {json.dumps(secs)} "
+        f"-> {_build.BUILD_DIR}")
+    for name in kernels.KERNELS:
+        log = _build.BUILD_DIR / f"{name}.log"
+        for line in log.read_text().splitlines() if log.exists() else []:
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
+    say("nvidia-smi:", smi_line())
+    say("kernels:", ", ".join(f"{n} ({src})" for n, _, _, src, _ in KERNELS))
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernel == plain version on random inputs
+# ----------------------------------------------------------------------
+
+def phase_kernels(dev):
+    from repro_torch.core import quantize
+
+    mods = modules()
+    rng = np.random.default_rng(0)
+    k1, r1 = mods["lorenzo"]
+    T, H, W = SIZES["k1"]
+    for xi_unit in (1, 3, 1024):
+        tau = 4 * xi_unit
+        dfp = torch.as_tensor(rng.integers(-(2 ** 29), 2 ** 29, (T, H, W)),
+                              device=dev)
+        eb = torch.as_tensor(rng.integers(0, tau + 1, (T, H, W)), device=dev)
+        k, ll = quantize.quantize_eb(eb, xi_unit, 3)
+        for block in (16, 13):
+            got = k1.lorenzo_residual(dfp, k, ll, xi_unit, block)
+            want = r1.lorenzo_residual(dfp, k, ll, xi_unit, block)
+            assert same(got, want), f"K1 differs xi={xi_unit} block={block}"
+    say(f"K1 lorenzo_residual == plain on {(T, H, W)}, xi_unit 1/3/1024, "
+        "block 16/13: bitwise")
+
+    k2, r2 = mods["cptest"]
+    n = SIZES["k2"]
+    n_v = 3 * n
+    u = rng.integers(-(2 ** 29), 2 ** 29, n_v)
+    v = rng.integers(-(2 ** 29), 2 ** 29, n_v)
+    zero = rng.random(n_v) < 0.2                 # a fifth of the values 0
+    u[zero] = 0
+    v[rng.random(n_v) < 0.2] = 0
+    small = rng.random(n_v) < 0.3                # small values: det ties
+    u[small] = rng.integers(-2, 3, int(small.sum()))
+    v[small] = rng.integers(-2, 3, int(small.sum()))
+    verts = rng.integers(0, n_v, (n, 3))
+    tie = rng.random(n) < 0.25                   # collinear pairs: det == 0
+    u[verts[tie, 1]] = 2 * u[verts[tie, 0]]
+    v[verts[tie, 1]] = 2 * v[verts[tie, 0]]
+    args = [torch.as_tensor(a, device=dev) for a in (u, v, verts)]
+    got = k2.face_crossed(*args)
+    want = r2.face_crossed(*args)
+    assert same(got, want), "K2 differs"
+    say(f"K2 face_crossed == plain on {n} faces (zeros, ties, collinear "
+        f"pairs; {int(want.sum())} crossed): bitwise")
+
+    k3, r3 = mods["semilagrange"]
+    H, W = SIZES["k3"]
+    for amp, cfl in ((50, 0.05), (5e4, 0.01), (5e4, 0.2)):
+        xu = torch.as_tensor(rng.integers(-amp, amp + 1, (H, W)), device=dev)
+        xv = torch.as_tensor(rng.integers(-amp, amp + 1, (H, W)), device=dev)
+        g2f = 0.01
+        disp = float(max(xu.abs().max(), xv.abs().max())) * g2f * cfl
+        got = k3.sl_step(xu, xv, g2f, cfl, cfl, 2.0, 32)
+        want = r3.sl_step(xu, xv, g2f, cfl, cfl, 2.0, 32)
+        assert same(got, want), f"K3 differs at max displacement {disp}"
+        say(f"K3 sl_step == plain on {(H, W)}, max displacement {disp:.1f} "
+            f"cells (d_max*n_max = 64): bitwise")
+
+
+# ----------------------------------------------------------------------
+# phase 3: card == CPU
+# ----------------------------------------------------------------------
+
+def scf_meta(T, H, W):
+    # the SCF analogue's metadata (benchmarks/datasets.py)
+    return dict(dt=0.05, dx=2.0 / (W - 1), dy=1.0 / (H - 1))
+
+
+def large_magnitude_field():
+    rng = np.random.default_rng(3)
+    T, H, W = 4, 16, 16
+    u = (1.0e8 + rng.normal(0, 100.0, (T, H, W))).astype(np.float32)
+    v = (1.0e8 + rng.normal(0, 100.0, (T, H, W))).astype(np.float32)
+    return u, v
+
+
+def phase_parity(dev):
+    import repro_torch as rt
+    from repro_torch.data import synthetic
+
+    T, H, W = SIZES["parity"]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    cases = [("vortex_street", u, v,
+              rt.CompressionConfig(eb=1e-3, **scf_meta(T, H, W))),
+             ("large_magnitude",) + large_magnitude_field()
+             + (rt.CompressionConfig(eb=6.0, mode="abs"),)]
+    for name, u, v, cfg in cases:
+        b_dev, s_dev = rt.compress(u, v, cfg, device=dev)
+        b_cpu, s_cpu = rt.compress(u, v, cfg, device="cpu")
+        assert b_dev == b_cpu, f"{name}: card and CPU blobs differ"
+        assert s_dev["verify_bad_counts"] == s_cpu["verify_bad_counts"]
+        if name == "large_magnitude":
+            assert s_dev["verify_rounds"] >= 1, "verify rounds did not fire"
+        ur_d, vr_d = rt.decompress(b_dev, device=dev)
+        ur_c, vr_c = rt.decompress(b_dev, device="cpu")
+        assert np.array_equal(ur_d, ur_c) and np.array_equal(vr_d, vr_c)
+        say(f"parity {name} {u.shape}: card blob == CPU blob "
+            f"({len(b_dev)} B, verify rounds {s_dev['verify_rounds']}, "
+            f"bad counts {s_dev['verify_bad_counts']}); decode equal")
+
+
+# ----------------------------------------------------------------------
+# phase 4: the main path at full size
+# ----------------------------------------------------------------------
+
+class Recorder:
+    """Routes each kernel dispatch through a recorder for one run:
+    CUDA-event time per launch and the inputs of the largest launch (for
+    phase 5).  It swaps the ``kernel`` module the ops dispatch calls, so
+    the kernel wrappers themselves (and their launch counts) are
+    untouched."""
+
+    def __init__(self):
+        self.events = {n: [] for n, *_ in KERNELS}
+        self.inputs = {}
+        self.work = {}
+        self._saved = {}
+
+    def __enter__(self):
+        import importlib
+
+        for name, mod, attr, _, _ in KERNELS:
+            ops = importlib.import_module(f"repro_torch.kernels.{mod}.ops")
+            self._saved[name] = (ops, ops.kernel)
+            ops.kernel = types.SimpleNamespace(
+                **{attr: self._wrap(name, getattr(ops.kernel, attr))})
+        return self
+
+    def __exit__(self, *exc):
+        for ops, kmod in self._saved.values():
+            ops.kernel = kmod
+
+    def _wrap(self, name, orig):
+        def wrapped(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args)
+            stop.record()
+            self.events[name].append((start, stop))
+            work = sum(a.numel() for a in args if torch.is_tensor(a))
+            if work > self.work.get(name, -1):
+                self.work[name] = work
+                self.inputs[name] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
+            return out
+        return wrapped
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {n: sum(a.elapsed_time(b) for a, b in ev)
+                for n, ev in self.events.items()}
+
+
+class StageClock:
+    """Host-clock time per pipeline stage for one traced run: each stage
+    function is wrapped with a device synchronize on both sides (so the
+    sum exceeds an untraced run by the synchronizations)."""
+
+    STAGES = [("fixedpoint", "repro_torch.core.fixedpoint", "to_fixed"),
+              ("eb_derive", "repro_torch.core.ebound", "derive_vertex_eb"),
+              ("quantize_predict", "repro_torch.core.pipeline",
+               "_encode_field"),
+              ("decode_fields", "repro_torch.core.pipeline",
+               "_decode_fields_parallel"),
+              ("verify_check", "repro_torch.core.pipeline", "_verify_round"),
+              ("symbolize", "repro_torch.core.encode", "field_sections"),
+              ("pack", "repro_torch.core.encode", "pack"),
+              ("unpack", "repro_torch.core.encode", "unpack"),
+              ("parse", "repro_torch.core.encode", "parse_field_sections")]
+
+    def __init__(self):
+        self.seconds = {}
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+
+        for name, mod, attr in self.STAGES:
+            m = importlib.import_module(mod)
+            orig = getattr(m, attr)
+            self._saved.append((m, attr, orig))
+            setattr(m, attr, self._wrap(name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for m, attr, orig in self._saved:
+            setattr(m, attr, orig)
+
+    def _wrap(self, name, orig):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[name] = self.seconds.get(name, 0.0) \
+                + time.perf_counter() - t0
+            return out
+        return timed
+
+
+def device_profile(fn):
+    """Run ``fn()`` under torch.profiler: (wall s, summed device-side
+    self time s, top device ops [(name, ms, calls)]).  The device sum is
+    0 where the profiler sees no device activity; wall includes the
+    profiler's host overhead, so busy = device / wall is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies): a host op's entry
+    # repeats the time of the kernels it launched.  "Activity Buffer
+    # Request" is the profiler's own buffer, not work of the program.
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != "Activity Buffer Request"]
+    rows = [r for r in rows if r[1] > 0]
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows) / 1e3, rows
+
+
+def kernel_rows(rows):
+    """{wrapper name: (device ms, launches)} of this package's kernels
+    among profiler rows (the CUDA function is ``<wrapper>_kernel``)."""
+    out = {}
+    for name, _, attr, _, _ in KERNELS:
+        hits = [(ms, c) for n, ms, c in rows if f"{attr}_kernel(" in n]
+        out[name] = (sum(h[0] for h in hits), sum(h[1] for h in hits))
+    return out
+
+
+def reset_counts(fns):
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def read_counts(fns):
+    return {n: fn.launches for n, fn in fns.items()}
+
+
+def phase_main(dev):
+    import repro_torch as rt
+    from repro_torch.core import metrics, trajectory
+    from repro_torch.data import synthetic
+
+    fns = wrappers()
+    results = []
+    for T, H, W in SIZES["main"]:
+        t0 = time.perf_counter()
+        u, v = synthetic.vortex_street(T=T, H=H, W=W)
+        say(f"main {T}x{H}x{W}: field generated in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cfg = rt.CompressionConfig(**scf_meta(T, H, W))
+        with Recorder() as rec:
+            reset_counts(fns)
+            blob, stats = rt.compress(u, v, cfg, device=dev)
+            enc_counts = read_counts(fns)
+            reset_counts(fns)
+            ur, vr = rt.decompress(blob, device=dev)
+            dec_counts = read_counts(fns)
+            kernel_ms = rec.ms()
+        # second, uninstrumented run for the host-clock times
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        blob2, _ = rt.compress(u, v, cfg, device=dev)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ur2, vr2 = rt.decompress(blob2, device=dev)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with StageClock() as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob3, _ = rt.compress(u, v, cfg, device=dev)
+            torch.cuda.synchronize()
+            traced_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rt.decompress(blob3, device=dev)
+            torch.cuda.synchronize()
+            traced_dec = time.perf_counter() - t0
+        say(f"main {T}x{H}x{W}: traced run encode {traced_enc:.3f} s, "
+            f"decode {traced_dec:.3f} s; stage seconds "
+            f"{json.dumps({k: round(x, 4) for k, x in clock.seconds.items()})}")
+        for what, fn in (("compress", lambda: rt.compress(u, v, cfg,
+                                                        device=dev)),
+                         ("decompress", lambda: rt.decompress(blob,
+                                                            device=dev))):
+            wall, busy, rows = device_profile(fn)
+            say(f"main {T}x{H}x{W}: profiled {what}: wall {wall:.3f} s, "
+                f"device busy {busy:.4f} s ({100 * busy / wall:.2f}%); "
+                f"kernels (device ms, launches) "
+                f"{json.dumps(kernel_rows(rows))}; top device ops (name, ms, "
+                f"calls) "
+                f"{json.dumps([(n[:60], round(ms, 3), c) for n, ms, c in rows[:6]])}")
+        assert blob2 == blob == blob3, "compress runs gave different bytes"
+        assert np.array_equal(ur2, ur) and np.array_equal(vr2, vr)
+        assert ur.shape == u.shape and np.isfinite(ur).all() \
+            and np.isfinite(vr).all()
+        err = metrics.max_abs_error(u, v, ur, vr)
+        fc = trajectory.false_cases(u, v, ur, vr, stats["scale"], dev)
+        say(f"main {T}x{H}x{W}: ratio {stats['ratio']:.4f}, "
+            f"{len(blob)} B, verify rounds {stats['verify_rounds']} "
+            f"{stats['verify_bad_counts']}, sl_block_frac "
+            f"{stats['sl_block_frac']:.4f}, lossless_frac "
+            f"{stats['lossless_frac']:.4f}")
+        say(f"main {T}x{H}x{W}: max err {err!r} <= eb_abs "
+            f"{stats['eb_abs']!r}; FC_t {fc['FC_t']} FC_s {fc['FC_s']} "
+            f"(CP_t {fc['CP_t_orig']}, CP_slab {fc['CP_slab_orig']})")
+        say(f"main {T}x{H}x{W}: encode {enc_s:.3f} s, decode {dec_s:.3f} s "
+            f"(second call, host clock), peak device memory "
+            f"{peak / 2 ** 20:.1f} MiB")
+        say(f"main {T}x{H}x{W}: launches compress {json.dumps(enc_counts)}, "
+            f"decompress {json.dumps(dec_counts)}; summed stream ms per "
+            f"kernel (CUDA events around each call, host gaps included) "
+            f"{json.dumps({k: round(x, 4) for k, x in kernel_ms.items()})}")
+        assert err <= stats["eb_abs"], "pointwise bound violated"
+        assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
+        assert stats["sl_block_frac"] > 0, "no SL block was selected"
+        assert enc_counts["lorenzo_residual"] > 0
+        assert enc_counts["face_crossed"] > 0
+        assert enc_counts["sl_step"] > 0 and dec_counts["sl_step"] > 0
+        results.append({
+            "shape": (T, H, W),
+            "launches": {n: enc_counts[n] + dec_counts[n]
+                         for n in enc_counts},
+            "inputs": rec.inputs,
+        })
+    return results
+
+
+# ----------------------------------------------------------------------
+# phase 5: the kernel table at the main path's shapes
+# ----------------------------------------------------------------------
+
+def bound_terms(name, args):
+    """(bytes, f64 operations) the function needs on these inputs."""
+    if name == "lorenzo_residual":
+        dfp = args[0]
+        return dfp.numel() * (8 + 4 + 1 + 8), 0
+    if name == "face_crossed":
+        u_flat, _, verts = args
+        n_used = int(torch.unique(verts).numel())
+        return verts.numel() * 8 + n_used * 16 + verts.shape[0], 0
+    xu, xv, g2f, cx, cy, d_max, n_max = args
+    u = xu.to(torch.float64) * g2f
+    v = xv.to(torch.float64) * g2f
+    d_inf = torch.maximum(u.abs() * cx, v.abs() * cy)
+    n_sub = torch.clamp(torch.ceil(d_inf / d_max), 1.0, float(n_max))
+    rk = d_inf <= d_max
+    # per pixel: 12 setup + final two bilinear samples (2 x 15) + 2
+    # divisions; RK2: two bilinear samples + 8; substeps: 2 + per step
+    # two bilinear samples + 6
+    per = 44 + torch.where(rk, torch.full_like(n_sub, 38.0),
+                           2.0 + 36.0 * n_sub)
+    return xu.numel() * 32, float(per.sum())
+
+
+def phase_table(main):
+    mods = modules()
+    run = main[0]
+    rows = []
+    for name, mod, attr, src, replaces in KERNELS:
+        kmod, rmod = mods[mod]
+        args = run["inputs"][name]
+        kern = getattr(kmod, attr)
+        plain = getattr(rmod, attr)
+        saved = kern.launches
+        got = kern(*args)
+        want = plain(*args)
+        assert same(got, want), f"{name}: kernel != plain on main-path inputs"
+        err = max_abs_err(got, want)
+        call_ms = time_ms(lambda: kern(*args), 50)
+        plain_ms = time_ms(lambda: plain(*args), 5)
+        _, _, prof_rows = device_profile(
+            lambda: [kern(*args) for _ in range(50)])
+        dev_ms, n = kernel_rows(prof_rows)[name]
+        # the kernel's own device time; the event-timed call time where
+        # the profiler sees no device activity
+        ms = dev_ms / n if n else call_ms
+        kern.launches = saved
+        nbytes, ops = bound_terms(name, args)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F64_FLOPS * 1e3
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        how = (f"device, {n} profiled launches" if n
+               else "per call: the profiler saw no device time")
+        say(f"table {name}: main-path inputs {shapes}, kernel {ms:.5f} ms "
+            f"({how}), {call_ms:.5f} ms per call "
+            f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per call, "
+            f"bound {max(t_bytes, t_ops):.6f} ms "
+            f"({nbytes} B, {ops:.0f} f64 ops), launches {run['launches'][name]}")
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": run["launches"][name],
+            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        })
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script drives the port on "
+              "the card only", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+    say(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__},"
+        f" CUDA {torch.version.cuda}")
+    phase_build()
+    phase_kernels(dev)
+    phase_parity(dev)
+    main_runs = phase_main(dev)
+    rows = phase_table(main_runs)
+    say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
+    say(json.dumps({"kernels": rows}))
+    say(smi_line())
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""Dispatch of the three hot ops of the pipeline.
+
+The tensor's device picks the implementation: on a CUDA tensor each op
+launches its hand-written Hopper kernel (``repro_torch/kernels``), on a
+CPU tensor it runs the kernel's plain PyTorch version.  There is no
+backend name and no fallback between the two.
+
+Determinism contract:
+
+* the two integer ops (Lorenzo residual, SoS predicate) are exact int64
+  and equal on every device;
+* the SL stepper is f64 with every operation rounded once, in the op
+  order of the JAX package's numpy stepper: kernel and plain version are
+  bitwise equal to that stepper, so the header records
+  ``sl_backend: "numpy"`` and the JAX package replays the same
+  predictions when it decodes a port container.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.cptest import ops as _cp_ops
+from ..kernels.lorenzo import ops as _lz_ops
+from ..kernels.semilagrange import ops as _sl_ops
+
+# the header tag of the SL stepper this package runs (see module doc)
+SL_BACKEND = "numpy"
+# f64 steppers whose containers this package decodes with its own
+SL_DECODABLE = ("numpy", "xla")
+
+
+def lorenzo_residual(dfp, k, lossless, xi_unit: int, block: int):
+    """Fused eb-quantize + dual-quantize + 3D-Lorenzo residual.
+
+    dfp (T, H, W) int64; k int32 (-1 lossless); lossless bool.  Returns
+    int64 residuals (T, H, W)."""
+    return _lz_ops.lorenzo_residual(dfp.contiguous(),
+                                    k.to(torch.int32).contiguous(),
+                                    lossless.contiguous(), xi_unit, block)
+
+
+def sl_stepper(cfl_x: float, cfl_y: float, d_max: float, n_max: int):
+    """The per-frame SL prediction F(xu_prev, xv_prev, g2f) -> (pu, pv),
+    shared by the encoder, the verify simulation and the decoder."""
+    def step(xu_prev, xv_prev, g2f):
+        return _sl_ops.sl_step(xu_prev.contiguous(), xv_prev.contiguous(),
+                               g2f, cfl_x, cfl_y, d_max, n_max)
+    return step
+
+
+def sl_predictions(xu, xv, g2f: float, stepper):
+    """Encoder-side predictions for frames 1..T-1, one stepper call per
+    frame.  Returns (T-1, H, W) int64 stacks."""
+    pus, pvs = [], []
+    for t in range(1, xu.shape[0]):
+        pu, pv = stepper(xu[t - 1], xv[t - 1], g2f)
+        pus.append(pu)
+        pvs.append(pv)
+    return torch.stack(pus), torch.stack(pvs)
+
+
+def face_crossed(u_flat, v_flat, verts):
+    """Exact SoS predicate of the faces ``verts`` (N, 3) global vertex
+    ids, gathered from the flat value arrays.  Returns (N,) bool."""
+    return _cp_ops.face_crossed(u_flat.contiguous(), v_flat.contiguous(),
+                                verts.contiguous())

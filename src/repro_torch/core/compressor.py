@@ -1,0 +1,163 @@
+"""Critical-point-trajectory-preserving compressor (paper Alg. 3).
+
+Public API:
+
+    blob, stats = compress(u, v, CompressionConfig(eb=...))
+    u_rec, v_rec = decompress(blob)
+
+Both run on the CUDA device unless the caller passes ``device="cpu"``;
+with no CUDA device and ``device=None`` they raise RuntimeError.  The
+container is the JAX package's monolithic format (version 2, header
+``sl_backend: "numpy"``), byte-equal to what the JAX package writes with
+its numpy SL stepper for the same field and config.
+
+``CompressionConfig`` keeps the JAX package's fields and defaults.  The
+options whose code paths are not ported raise NotImplementedError
+naming their ROADMAP item; ``backend`` must stay None (the device picks
+kernel or plain version).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import ebpolicy, encode, fixedpoint, pipeline, predictors, quantize
+
+FORMAT_VERSION = pipeline.FORMAT_VERSION
+
+
+@dataclasses.dataclass
+class CompressionConfig:
+    eb: float = 1e-2                  # error bound
+    mode: str = "rel"                 # 'abs' or 'rel' (relative to value range)
+    predictor: str = "mop"            # 'mop' | 'lorenzo' | 'sl'
+    block: int = predictors.DEFAULT_BLOCK
+    n_levels: int = quantize.DEFAULT_LEVELS
+    fixed_bits: int = fixedpoint.DEFAULT_BITS
+    dt: float = 1.0
+    dx: float = 1.0
+    dy: float = 1.0
+    d_max: float = 2.0
+    n_max: int = 32
+    zstd_level: int = 12
+    verify: bool = True
+    max_rounds: int = 12
+    backend: Optional[str] = None     # must be None: the device decides
+    fused: Optional[bool] = None      # None / True: the fused pipeline
+    tiling: Optional[object] = None   # tiled pipeline (not ported)
+    track_index: bool = True          # tiled only
+    batch_units: bool = True          # tiled only
+    codec: str = "host"               # 'host' | 'device' (not ported)
+    batch_cap: int = 8                # tiled only
+    q_in_frames: Optional[int] = None   # streaming only
+    q_out_units: Optional[int] = None   # streaming only
+    eb_policy: Optional[object] = None  # uniform only (see ebpolicy.py)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA device (RuntimeError without one)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions of the kernels")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _refuse_unported(cfg: CompressionConfig, autotune, target_ratio):
+    if cfg.backend is not None:
+        raise ValueError(
+            f"backend={cfg.backend!r}: repro_torch has no backend names; "
+            "the tensor's device picks the kernel (CUDA) or its plain "
+            "version (CPU) -- leave backend=None")
+    if target_ratio is not None:
+        raise NotImplementedError(
+            "target_ratio (rate-targeted eb policies) is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 11)")
+    if autotune:
+        raise NotImplementedError(
+            "autotune is not ported to repro_torch yet (ROADMAP Queue 1 "
+            "item 11)")
+    if cfg.tiling is not None:
+        raise NotImplementedError(
+            "tiled compression is not ported to repro_torch yet (ROADMAP "
+            "Queue 1 item 6)")
+    if cfg.fused is False:
+        raise NotImplementedError(
+            "the legacy fused=False binding is not ported to repro_torch "
+            "(ROADMAP Queue 1 item 4: it exists only for A/B timing)")
+    if cfg.codec == "device":
+        raise NotImplementedError(
+            "codec='device' (the device entropy stage) is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 7)")
+    if cfg.codec != "host":
+        raise ValueError(f"unknown codec {cfg.codec!r}; expected 'host' "
+                         "or 'device'")
+    ebpolicy.normalize(cfg.eb_policy)
+
+
+def _as_fields(u, v):
+    u = np.asarray(u)
+    v = np.asarray(v)
+    if u.shape != v.shape or u.ndim != 3:
+        raise ValueError(
+            f"expect (T, H, W) u and v, got {u.shape} and {v.shape}")
+    if min(u.shape) < 2:
+        raise ValueError(
+            f"need at least a 2x2x2 space-time grid, got {u.shape}")
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+def _eb_factor(u, v, cfg) -> float:
+    """1.0 for ``abs``, the value range for ``rel``."""
+    if cfg.mode == "abs":
+        return 1.0
+    lo = min(u.min(), v.min())
+    hi = max(u.max(), v.max())
+    # the subtraction stays in the fields' float32, as in the JAX package
+    rng = float(hi - lo)
+    ebpolicy.check_relative_range(rng, max(abs(float(lo)), abs(float(hi))))
+    return max(rng, 1e-30)
+
+
+def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
+             device=None, autotune: bool = False,
+             target_ratio: Optional[float] = None):
+    """Compress a (T, H, W) pair of float fields.  Returns (blob, stats)."""
+    if cfg is None:
+        cfg = CompressionConfig()
+    _refuse_unported(cfg, autotune, target_ratio)
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    u, v = _as_fields(u, v)
+    eb_abs = float(cfg.eb) * _eb_factor(u, v, cfg)
+    scale, ufp, vfp = fixedpoint.to_fixed(u, v, cfg.fixed_bits)
+    ex = pipeline.PlanExecutor(pipeline.plan_from_cfg(cfg, scale, eb_abs),
+                               dev)
+    enc = pipeline.compress_field(ex, u, v, ufp, vfp)
+    return pipeline.pack_field(ex, u, v, enc, t0)
+
+
+def decompress(blob: bytes, *, device=None):
+    """Container bytes -> (u, v) float32 numpy arrays (T, H, W)."""
+    dev = resolve_device(device)
+    header, sections = encode.unpack(blob)
+    version = header.get("version", 1)
+    if not isinstance(version, int) \
+            or version > pipeline.FORMAT_VERSION_ADAPTIVE:
+        raise ValueError(
+            f"container format version {version} is newer than this "
+            f"decoder (supports <= {pipeline.FORMAT_VERSION_ADAPTIVE})")
+    ex = pipeline.PlanExecutor(pipeline.plan_from_header(header), dev)
+    return pipeline.decode_field_blob(ex, header, sections)

@@ -1,0 +1,137 @@
+"""Space-time simplicial mesh over a regular (T, H, W) grid.
+
+Spatial triangulation: every cell (i, j)-(i+1, j+1) is split along the
+main diagonal into
+
+    tri1 = {(i, j), (i+1, j), (i+1, j+1)}
+    tri2 = {(i, j), (i, j+1), (i+1, j+1)}
+
+Face families per slab [t, t+1] (local vertex id = plane * H*W + sid,
+plane in {0, 1}, sid = i * W + j):
+
+    slice0    bottom time-slice triangles            2 (H-1)(W-1)
+    side      2 per spatial edge (h, v, d edges)     2 (H(W-1) + (H-1)W + (H-1)(W-1))
+    internal  2 per spatial triangle                 4 (H-1)(W-1)
+
+Vertex ids inside a face are strictly increasing, so the SoS index
+order is the id order.  The tables are built once per (H, W) with numpy
+(int32, the same enumeration as the JAX package) and uploaded once per
+device as int64 tensors (``device_tables``).
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+def _sid(i, j, W):
+    return i * W + j
+
+
+@lru_cache(maxsize=32)
+def spatial_triangles(H: int, W: int) -> np.ndarray:
+    """(2*(H-1)*(W-1), 3) int32 sorted spatial-id triangles."""
+    ii, jj = np.meshgrid(np.arange(H - 1), np.arange(W - 1), indexing="ij")
+    v00 = _sid(ii, jj, W).ravel()
+    v10 = _sid(ii, jj + 1, W).ravel()
+    v01 = _sid(ii + 1, jj, W).ravel()
+    v11 = _sid(ii + 1, jj + 1, W).ravel()
+    tri1 = np.stack([v00, v01, v11], axis=1)
+    tri2 = np.stack([v00, v10, v11], axis=1)
+    return np.concatenate([tri1, tri2], axis=0).astype(np.int32)
+
+
+@lru_cache(maxsize=32)
+def spatial_edges(H: int, W: int) -> np.ndarray:
+    """(E, 2) int32 sorted spatial edges: horizontal, vertical, diagonal."""
+    edges = []
+    ii, jj = np.meshgrid(np.arange(H), np.arange(W - 1), indexing="ij")
+    edges.append(np.stack([_sid(ii, jj, W).ravel(), _sid(ii, jj + 1, W).ravel()], 1))
+    ii, jj = np.meshgrid(np.arange(H - 1), np.arange(W), indexing="ij")
+    edges.append(np.stack([_sid(ii, jj, W).ravel(), _sid(ii + 1, jj, W).ravel()], 1))
+    ii, jj = np.meshgrid(np.arange(H - 1), np.arange(W - 1), indexing="ij")
+    edges.append(np.stack([_sid(ii, jj, W).ravel(), _sid(ii + 1, jj + 1, W).ravel()], 1))
+    return np.concatenate(edges, axis=0).astype(np.int32)
+
+
+@lru_cache(maxsize=32)
+def slab_faces(H: int, W: int):
+    """Face tables for one slab, dict name -> (F, 3) int32 local ids."""
+    HW = H * W
+    tris = spatial_triangles(H, W).astype(np.int64)
+    edges = spatial_edges(H, W).astype(np.int64)
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    p, q = edges[:, 0], edges[:, 1]
+    side = np.concatenate(
+        [
+            np.stack([p, q, q + HW], 1),       # (p0, q0, q1)
+            np.stack([p, p + HW, q + HW], 1),  # (p0, p1, q1)
+        ],
+        axis=0,
+    )
+    internal = np.concatenate(
+        [
+            np.stack([a, b, c + HW], 1),        # (a0, b0, c1)
+            np.stack([a, b + HW, c + HW], 1),   # (a0, b1, c1)
+        ],
+        axis=0,
+    )
+    return {
+        "slice0": tris.astype(np.int32),
+        "slice1": (tris + HW).astype(np.int32),
+        "side": side.astype(np.int32),
+        "internal": internal.astype(np.int32),
+    }
+
+
+@lru_cache(maxsize=32)
+def slab_face_table(H: int, W: int) -> np.ndarray:
+    """(Fb, 3) int32 side+internal face table (local 2-plane ids)."""
+    sf = slab_faces(H, W)
+    return np.concatenate([sf["side"], sf["internal"]], axis=0)
+
+
+@lru_cache(maxsize=32)
+def incidence_table(H: int, W: int, kind: str) -> np.ndarray:
+    """Static vertex -> incident (face, slot) flat-index table.
+
+    Entry [v, k] indexes ``ebs.reshape(-1)`` (layout f*3 + slot); rows
+    are padded with the out-of-range sentinel F*3, so the per-vertex eb
+    reduction is a gather-min (ebound.py).
+    """
+    if kind == "slice":
+        tab = slab_faces(H, W)["slice0"]
+        n_verts = H * W
+    else:
+        tab = slab_face_table(H, W)
+        n_verts = 2 * H * W
+    F = len(tab)
+    vert = tab.reshape(-1).astype(np.int64)
+    order = np.argsort(vert, kind="stable")
+    sv = vert[order]
+    si = order.astype(np.int64)
+    counts = np.bincount(sv, minlength=n_verts)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(sv)) - starts[sv]
+    out = np.full((n_verts, int(counts.max())), F * 3, dtype=np.int64)
+    out[sv, pos] = si
+    return out
+
+
+@lru_cache(maxsize=16)
+def device_tables(H: int, W: int, device: str) -> dict:
+    """The face and incidence tables as int64 tensors on ``device``
+    (uploaded once per (H, W, device))."""
+    dev = torch.device(device)
+
+    def up(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    return {
+        "slice": up(slab_faces(H, W)["slice0"]),
+        "slab": up(slab_face_table(H, W)),
+        "slice_inc": up(incidence_table(H, W, "slice")),
+        "slab_inc": up(incidence_table(H, W, "slab")),
+    }

@@ -1,0 +1,522 @@
+"""The monolithic fused pipeline: plan, encode stages, verify fixpoint,
+decode.
+
+    fixedpoint -> eb-derive -> quantize -> predict -> verify-fixpoint
+               -> symbolize -> pack
+
+Every stage runs on the device of the tensors it is given (the caller's
+``device``): on CUDA the three hot ops launch their kernels through
+core/backend.py, on the CPU they run the plain versions.  Integer stages
+are exact int64, the reconstruction and pointwise checks are elementwise
+IEEE f64, the SL stepper is the f64 stepper of backend.py and the MoP
+rate model runs on the host (mop.py), so the container bytes do not
+depend on the device and equal the JAX package's for the same plan with
+its numpy SL stepper.
+
+Only the monolithic fused plan with the host codec is ported.  The
+legacy (``fused=False``), tiled, streaming and device-entropy bindings
+are refused (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from . import backend, ebound, encode, grid, mop, predictors, quantize
+
+FORMAT_VERSION = 2
+# the adaptive (per-tile policy) monolithic container; its decode path
+# is the uniform one
+FORMAT_VERSION_ADAPTIVE = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinePlan:
+    """One pipeline configuration: global stream parameters."""
+
+    name: str
+    predictor: str
+    block: int
+    n_levels: int
+    scale: float
+    eb_abs: float
+    tau: int
+    xi_unit: int
+    n_usable: int
+    cfl_x: float
+    cfl_y: float
+    d_max: float
+    n_max: int
+    zstd_level: int = 12
+    verify: bool = True
+    max_rounds: int = 12
+    sl_backend: str = backend.SL_BACKEND
+
+    @property
+    def g2f(self) -> float:
+        return (2.0 * self.xi_unit) / self.scale
+
+
+def plan_from_cfg(cfg, scale: float, eb_abs: float) -> PipelinePlan:
+    """Plan from a CompressionConfig + the field-derived stream params."""
+    tau = max(int(np.floor(eb_abs * scale)), 0)
+    xi_unit, n_usable = quantize.ladder(tau, cfg.n_levels)
+    return PipelinePlan(
+        name="fused",
+        predictor=cfg.predictor,
+        block=cfg.block,
+        n_levels=cfg.n_levels,
+        scale=scale,
+        eb_abs=eb_abs,
+        tau=tau,
+        xi_unit=xi_unit,
+        n_usable=n_usable,
+        cfl_x=cfg.dt / cfg.dx,
+        cfl_y=cfg.dt / cfg.dy,
+        d_max=cfg.d_max,
+        n_max=cfg.n_max,
+        zstd_level=cfg.zstd_level,
+        verify=cfg.verify,
+        max_rounds=cfg.max_rounds,
+    )
+
+
+def plan_from_header(header: dict) -> PipelinePlan:
+    """Decode-side plan.  Containers of the f64 steppers ("numpy",
+    "xla") decode with this package's f64 stepper; the f32 TPU stepper
+    ("pallas") is not ported and is refused."""
+    name = header.get("pipeline", "legacy")
+    if name != "fused":
+        raise NotImplementedError(
+            f"{name!r} pipeline containers are not ported to repro_torch "
+            "yet (ROADMAP Queue 1: the legacy binding, item 4; tiled, "
+            "item 6)")
+    tag = header.get("sl_backend")
+    if tag not in backend.SL_DECODABLE:
+        raise ValueError(
+            f"container SL stepper {tag!r} cannot be replayed by "
+            f"repro_torch (decodes {backend.SL_DECODABLE}): 'pallas' is "
+            "the f32 TPU stepper, which is not ported")
+    if header.get("codec") not in ("zstd", "zlib"):
+        raise NotImplementedError(
+            f"container codec {header.get('codec')!r} is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 7)")
+    try:
+        plan = PipelinePlan(
+            name=name,
+            predictor=header.get("predictor", "mop"),
+            block=int(header["block"]),
+            n_levels=1,
+            scale=float(header["scale"]),
+            eb_abs=float(header.get("eb_abs", 0.0)),
+            tau=0,
+            xi_unit=int(header["xi_unit"]),
+            n_usable=1,
+            cfl_x=float(header["cfl_x"]),
+            cfl_y=float(header["cfl_y"]),
+            d_max=float(header["d_max"]),
+            n_max=int(header["n_max"]),
+            sl_backend=tag,
+        )
+    except (KeyError, TypeError, ValueError) as e:
+        raise encode.ContainerError(f"malformed container header: {e}") \
+            from e
+    if plan.block < 1 or plan.xi_unit < 1 or plan.n_max < 1:
+        raise encode.ContainerError(
+            f"malformed container header: block {plan.block}, xi_unit "
+            f"{plan.xi_unit}, n_max {plan.n_max}")
+    return plan
+
+
+class PlanExecutor:
+    """A plan bound to a device and its SL stepper."""
+
+    def __init__(self, plan: PipelinePlan, device: torch.device):
+        self.plan = plan
+        self.device = device
+        self.stepper = backend.sl_stepper(plan.cfl_x, plan.cfl_y,
+                                          plan.d_max, plan.n_max)
+
+    @property
+    def g2f(self) -> float:
+        return self.plan.g2f
+
+    def tables(self, H: int, W: int) -> dict:
+        return grid.device_tables(H, W, str(self.device))
+
+
+# ----------------------------------------------------------------------
+# shared stage pieces
+# ----------------------------------------------------------------------
+
+def _reconstruct(xu, xv, scale, xi_unit, lossless, u_raw, v_raw):
+    g = 2.0 * xi_unit
+    u_rec = (xu.to(torch.float64) * (g / scale)).to(torch.float32)
+    v_rec = (xv.to(torch.float64) * (g / scale)).to(torch.float32)
+    return (torch.where(lossless, u_raw, u_rec),
+            torch.where(lossless, v_raw, v_rec))
+
+
+def _quantize_core(ufp, vfp, eb_vertex, lossless_extra, xi_unit, n_levels):
+    """eb -> (X_u, X_v, k, lossless)."""
+    k, lossless = quantize.quantize_eb(eb_vertex, xi_unit, n_levels)
+    lossless = lossless | lossless_extra
+    k = torch.where(lossless_extra, torch.full_like(k, -1), k)
+    xu = quantize.dual_quantize(ufp, k, lossless, xi_unit)
+    xv = quantize.dual_quantize(vfp, k, lossless, xi_unit)
+    return xu, xv, k, lossless
+
+
+def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
+                   scale, xi_unit, eb_abs):
+    """Reconstruct, re-fix, flag pointwise-bound violations.  Returns
+    (forced set, n violations, ur_fp, vr_fp)."""
+    u_rec, v_rec = _reconstruct(xu_d, xv_d, scale, xi_unit, lossless,
+                                u_raw, v_raw)
+    ur_fp = torch.round(u_rec.to(torch.float64) * scale).to(torch.int64)
+    vr_fp = torch.round(v_rec.to(torch.float64) * scale).to(torch.int64)
+    err = torch.maximum(
+        torch.abs(u_rec.to(torch.float64) - u_raw.to(torch.float64)),
+        torch.abs(v_rec.to(torch.float64) - v_raw.to(torch.float64)))
+    bad_pt = err > eb_abs
+    return lossless_extra | bad_pt, int(bad_pt.sum()), ur_fp, vr_fp
+
+
+def _face_all(m, tab):
+    return m[:, tab[:, 0]] & m[:, tab[:, 1]] & m[:, tab[:, 2]]
+
+
+def _screen_unsafe_core(shape, tabs, ufp, vfp, ur_fp, vr_fp):
+    """Faces whose predicate COULD have flipped (sound screen): a face
+    whose u- (or v-) components keep one strict sign in both the
+    original and the reconstruction cannot be crossed in either."""
+    T, H, W = shape
+    HW = H * W
+    masks = []
+    for o, r in ((ufp, ur_fp), (vfp, vr_fp)):
+        masks.append(((o > 0) & (r > 0)).reshape(T, HW))
+        masks.append(((o < 0) & (r < 0)).reshape(T, HW))
+
+    def unsafe(ms, tab):
+        safe = _face_all(ms[0], tab)
+        for m in ms[1:]:
+            safe |= _face_all(m, tab)
+        return ~safe
+
+    unsafe_slice = unsafe(masks, tabs["slice"])
+    pair = [torch.cat([m[:-1], m[1:]], dim=1) for m in masks]
+    return unsafe_slice, unsafe(pair, tabs["slab"])
+
+
+def _face_verts(ts, fs, tb, fb, HW, tabs):
+    """Global vertex-id triples for explicit (slice, slab) face indices."""
+    return torch.cat([tabs["slice"][fs] + ts[:, None] * HW,
+                      tabs["slab"][fb] + tb[:, None] * HW], dim=0)
+
+
+def _selection(unsafe_sl, unsafe_sb, HW, tabs):
+    ts, fs = torch.nonzero(unsafe_sl, as_tuple=True)
+    tb, fb = torch.nonzero(unsafe_sb, as_tuple=True)
+    return _face_verts(ts, fs, tb, fb, HW, tabs), (ts, fs), (tb, fb)
+
+
+def _touched_faces(delta, T, H, W, tabs):
+    """Faces incident to newly-forced vertices -> selection."""
+    HW = H * W
+    d2 = delta.reshape(T, HW)
+    pair = torch.cat([d2[:-1], d2[1:]], dim=1)
+
+    def face_any(m, tab):
+        return m[:, tab[:, 0]] | m[:, tab[:, 1]] | m[:, tab[:, 2]]
+
+    return _selection(face_any(d2, tabs["slice"]),
+                      face_any(pair, tabs["slab"]), HW, tabs)
+
+
+def face_recheck(shape, ur_fp, vr_fp, preds, selection):
+    """Exact SoS re-evaluation of a face selection against the original
+    predicates ``preds = (slice0, slab0)``.  Returns (forced additions
+    bool tensor of ``shape`` or None, n_bad)."""
+    verts, (ts, fs), (tb, fb) = selection
+    if not len(verts):
+        return None, 0
+    slice0, slab0 = preds
+    orig = torch.cat([slice0[ts, fs], slab0[tb, fb]])
+    crossed = backend.face_crossed(ur_fp.reshape(-1), vr_fp.reshape(-1),
+                                   verts)
+    bad = crossed != orig
+    n_bad = int(bad.sum())
+    if n_bad == 0:
+        return None, 0
+    T, H, W = shape
+    add = torch.zeros(T * H * W, dtype=torch.bool, device=ur_fp.device)
+    add[verts[bad].reshape(-1)] = True
+    return add.reshape(shape), n_bad
+
+
+def check_faces(shape, tabs, ufp, vfp, ur_fp, vr_fp, preds, delta):
+    """Face re-verification where predicates could have changed:
+    ``delta is None`` -> the sign-stability screen (first contact);
+    else only faces incident to newly-forced ``delta`` vertices."""
+    T, H, W = shape
+    if delta is None:
+        unsafe_sl, unsafe_sb = _screen_unsafe_core(shape, tabs, ufp, vfp,
+                                                   ur_fp, vr_fp)
+        selection = _selection(unsafe_sl, unsafe_sb, H * W, tabs)
+    else:
+        selection = _touched_faces(delta, T, H, W, tabs)
+    return face_recheck(shape, ur_fp, vr_fp, preds, selection)
+
+
+# ----------------------------------------------------------------------
+# decode: parallel in time, shared by verify-sim and decompress
+# ----------------------------------------------------------------------
+
+def _decode_fields_parallel(res_u, res_v, blockmap, scale, xi_unit, block,
+                            stepper):
+    """Parallel-in-time decode.  ``blockmap`` is a HOST bool array
+    (T, nbi, nbj): runs of frames with no SL tile are one prefix sum
+    over time; only frames with SL tiles step through ``stepper``."""
+    bm = np.asarray(blockmap)
+    T, H, W = res_u.shape
+    g2f = (2.0 * xi_unit) / scale
+    c2u = predictors.c2_block(res_u, block)
+    c2v = predictors.c2_block(res_v, block)
+    any_sl = bm.reshape(T, -1).any(axis=1)
+    any_sl[0] = False                          # frame 0 is spatial-only
+    Su = torch.cumsum(c2u, dim=0)
+    Sv = torch.cumsum(c2v, dim=0)
+    if not any_sl.any():
+        return Su, Sv
+    mask_rep = np.repeat(np.repeat(bm, block, axis=1), block, axis=2)
+    mask_rep = mask_rep[:, :H, :W]
+
+    us, vs = [], []
+    prev_u = prev_v = None
+    cur = 0
+    for t in np.flatnonzero(any_sl):
+        t = int(t)
+        if t > cur:
+            if cur == 0:
+                seg_u, seg_v = Su[:t], Sv[:t]
+            else:
+                seg_u = (prev_u - Su[cur - 1])[None] + Su[cur:t]
+                seg_v = (prev_v - Sv[cur - 1])[None] + Sv[cur:t]
+            us.append(seg_u)
+            vs.append(seg_v)
+            prev_u, prev_v = seg_u[-1], seg_v[-1]
+        pu, pv = stepper(prev_u, prev_v, g2f)
+        m = torch.as_tensor(mask_rep[t], device=res_u.device)
+        xu_t = torch.where(m, res_u[t] + pu, prev_u + c2u[t])
+        xv_t = torch.where(m, res_v[t] + pv, prev_v + c2v[t])
+        us.append(xu_t[None])
+        vs.append(xv_t[None])
+        prev_u, prev_v = xu_t, xv_t
+        cur = t + 1
+    if cur < T:
+        us.append((prev_u - Su[cur - 1])[None] + Su[cur:])
+        vs.append((prev_v - Sv[cur - 1])[None] + Sv[cur:])
+    return torch.cat(us, dim=0), torch.cat(vs, dim=0)
+
+
+def decode_payload(ex: PlanExecutor, shape, sections):
+    """sections -> reconstructed (u, v) float32 numpy arrays."""
+    p = ex.plan
+    dev = ex.device
+    res_u, res_v, bm, ll = encode.parse_field_sections(sections, shape)
+    T, H, W = shape
+    if bm.shape != (T, -(-H // p.block), -(-W // p.block)):
+        raise encode.ContainerError(
+            f"blockmap shape {list(bm.shape)} does not match the field "
+            f"{list(shape)} in {p.block}-blocks")
+    xu, xv = _decode_fields_parallel(
+        torch.as_tensor(res_u, device=dev), torch.as_tensor(res_v, device=dev),
+        bm, p.scale, p.xi_unit, p.block, ex.stepper)
+    n_ll = int(ll.sum())
+    u_raw = np.zeros(shape, dtype=np.float32)
+    v_raw = np.zeros(shape, dtype=np.float32)
+    for raw, name in ((u_raw, "u_ll"), (v_raw, "v_ll")):
+        vals = sections.get(name)
+        if vals is None or vals.shape != (n_ll,):
+            raise encode.ContainerError(
+                f"section {name!r} does not hold the {n_ll} lossless values")
+        raw[ll] = vals
+    u_rec, v_rec = _reconstruct(
+        xu, xv, p.scale, p.xi_unit, torch.as_tensor(ll, device=dev),
+        torch.as_tensor(u_raw, device=dev), torch.as_tensor(v_raw, device=dev))
+    return u_rec.cpu().numpy(), v_rec.cpu().numpy()
+
+
+def decode_field_blob(ex: PlanExecutor, header: dict, sections: dict):
+    try:
+        T, H, W = (int(s) for s in header["shape"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise encode.ContainerError(f"malformed container shape: {e}") from e
+    return decode_payload(ex, (T, H, W), sections)
+
+
+# ----------------------------------------------------------------------
+# full-field encode (quantize -> predict -> verify-fixpoint)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FieldEncode:
+    """compress_field result: streams + masks + verify accounting."""
+
+    res_u: torch.Tensor
+    res_v: torch.Tensor
+    bm: np.ndarray
+    lossless: torch.Tensor
+    rounds: int
+    bad_counts: list
+
+
+def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
+                  shape):
+    """Quantize + predict on the full field -> (res_u, res_v, bm (host),
+    lossless)."""
+    p = ex.plan
+    T, H, W = shape
+    nb = (T, -(-H // p.block), -(-W // p.block))
+    if p.predictor == "lorenzo":
+        k, lossless = quantize.quantize_eb(eb_vertex, p.xi_unit, p.n_levels)
+        lossless = lossless | lossless_extra
+        k = torch.where(lossless_extra, torch.full_like(k, -1), k)
+        res_u = backend.lorenzo_residual(ufp, k, lossless, p.xi_unit, p.block)
+        res_v = backend.lorenzo_residual(vfp, k, lossless, p.xi_unit, p.block)
+        return res_u, res_v, np.zeros(nb, dtype=bool), lossless
+    xu, xv, k, lossless = _quantize_core(ufp, vfp, eb_vertex, lossless_extra,
+                                         p.xi_unit, p.n_levels)
+    pu, pv = backend.sl_predictions(xu, xv, ex.g2f, ex.stepper)
+    if p.predictor == "sl":
+        res_u = torch.cat([predictors.d2_block(xu[:1], p.block), xu[1:] - pu])
+        res_v = torch.cat([predictors.d2_block(xv[:1], p.block), xv[1:] - pv])
+        bm = np.ones(nb, dtype=bool)
+        bm[0] = False
+        return res_u, res_v, bm, lossless
+    res3_u = backend.lorenzo_residual(ufp, k, lossless, p.xi_unit, p.block)
+    res3_v = backend.lorenzo_residual(vfp, k, lossless, p.xi_unit, p.block)
+    zero = torch.zeros_like(xu[:1])
+    ressl_u = torch.cat([zero, xu[1:] - pu])
+    ressl_v = torch.cat([zero, xv[1:] - pv])
+    bm = mop.select(res3_u, res3_v, ressl_u, ressl_v, p.block)
+    res_u = mop.assemble(res3_u, ressl_u, bm, p.block)
+    res_v = mop.assemble(res3_v, ressl_v, bm, p.block)
+    return res_u, res_v, bm.numpy(), lossless
+
+
+def _verify_round(ex, shape, tabs, preds, prev_extra, ufp, vfp, u, v,
+                  xu_d, xv_d, lossless, lossless_extra):
+    """One verify round: pointwise check + screened / incremental face
+    re-verification.  Returns (new forced set, n_bad)."""
+    p = ex.plan
+    forced, n_bad, ur_fp, vr_fp = _check_pt_core(
+        xu_d, xv_d, lossless, lossless_extra, u, v, p.scale, p.xi_unit,
+        p.eb_abs)
+    delta = None if prev_extra is None else lossless_extra ^ prev_extra
+    add, nf = check_faces(shape, tabs, ufp, vfp, ur_fp, vr_fp, preds, delta)
+    if add is not None:
+        forced = forced | add
+    return forced, n_bad + nf
+
+
+def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:
+    """Full-field quantize -> predict -> verify-fixpoint driver.
+
+    u, v: (T, H, W) float32 numpy; ufp, vfp: int64 numpy fixed point.
+    The loop forces the vertices of every violated face (and every
+    vertex breaking the pointwise bound) lossless and repeats; it only
+    grows the lossless set, so it terminates, and on exit FC_t = FC_s =
+    0 by construction."""
+    p = ex.plan
+    dev = ex.device
+    T, H, W = u.shape
+    shape = (T, H, W)
+    tabs = ex.tables(H, W)
+    ufp_d = torch.as_tensor(ufp, device=dev)
+    vfp_d = torch.as_tensor(vfp, device=dev)
+    u_d = torch.as_tensor(u, device=dev)
+    v_d = torch.as_tensor(v, device=dev)
+    eb_vertex, slice0, slab0 = ebound.derive_vertex_eb(
+        ufp_d, vfp_d, int(max(p.tau, 1)))
+    lossless_extra = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if p.tau < 1 or p.n_usable < 1:
+        lossless_extra = torch.ones(shape, dtype=torch.bool, device=dev)
+
+    prev_extra = None
+    rounds = 0
+    bad_counts = []
+    while True:
+        res_u, res_v, bm, lossless = _encode_field(
+            ex, ufp_d, vfp_d, eb_vertex, lossless_extra, shape)
+        if not p.verify:
+            break
+        xu_d, xv_d = _decode_fields_parallel(res_u, res_v, bm, p.scale,
+                                             p.xi_unit, p.block, ex.stepper)
+        new_extra, n_bad = _verify_round(
+            ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d, vfp_d,
+            u_d, v_d, xu_d, xv_d, lossless, lossless_extra)
+        bad_counts.append(n_bad)
+        if n_bad == 0 or rounds >= p.max_rounds:
+            break
+        prev_extra = lossless_extra
+        lossless_extra = new_extra
+        rounds += 1
+    return FieldEncode(res_u, res_v, bm, lossless, rounds, bad_counts)
+
+
+# ----------------------------------------------------------------------
+# symbolize + pack + stats
+# ----------------------------------------------------------------------
+
+def field_header(plan: PipelinePlan, shape) -> dict:
+    """The JAX package's ``pipeline.field_header`` for a uniform fused
+    plan, with this package's SL stepper tag."""
+    T, H, W = shape
+    return {
+        "version": FORMAT_VERSION,
+        "pipeline": plan.name,
+        "predictor": plan.predictor,
+        "sl_backend": plan.sl_backend,
+        "shape": [int(T), int(H), int(W)],
+        "scale": float(plan.scale),
+        "xi_unit": int(plan.xi_unit),
+        "block": int(plan.block),
+        "cfl_x": float(plan.cfl_x),
+        "cfl_y": float(plan.cfl_y),
+        "d_max": float(plan.d_max),
+        "n_max": int(plan.n_max),
+        "eb_abs": float(plan.eb_abs),
+    }
+
+
+def pack_field(ex: PlanExecutor, u, v, enc: FieldEncode, t0: float):
+    """Symbolize + pack + stats for a full-field encode."""
+    p = ex.plan
+    lossless_np = enc.lossless.cpu().numpy()
+    sections = encode.field_sections(
+        enc.res_u.cpu().numpy(), enc.res_v.cpu().numpy(), lossless_np,
+        u[lossless_np], v[lossless_np], enc.bm)
+    blob = encode.pack(field_header(p, u.shape), sections, p.zstd_level)
+    t1 = time.perf_counter()
+    orig_bytes = u.nbytes + v.nbytes
+    stats = {
+        "orig_bytes": orig_bytes,
+        "comp_bytes": len(blob),
+        "ratio": orig_bytes / max(len(blob), 1),
+        "lossless_frac": float(lossless_np.mean()),
+        "sl_block_frac": float(enc.bm.mean()),
+        "verify_rounds": enc.rounds,
+        "verify_bad_counts": enc.bad_counts,
+        "eb_abs": p.eb_abs,
+        "scale": p.scale,
+        "tau": p.tau,
+        "xi_unit": p.xi_unit,
+        "seconds": t1 - t0,
+        "device": str(ex.device),
+        "pipeline": p.name,
+    }
+    return blob, stats

@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA device and nvcc; elsewhere they skip with the
+reason.  The file imports no JAX, so it runs on the card's machine:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports the JAX package.)
+Kernel and plain version must agree bitwise, and a compress on the card
+must write the bytes of a compress on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import quantize
+from repro_torch.data import synthetic
+from repro_torch.kernels.cptest import kernel as k2, ref as r2
+from repro_torch.kernels.lorenzo import kernel as k1, ref as r1
+from repro_torch.kernels.semilagrange import kernel as k3, ref as r3
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("xi_unit,block", [(1, 16), (3, 16), (1024, 13)])
+def test_lorenzo_kernel_equals_plain(dev, xi_unit, block):
+    rng = np.random.default_rng(xi_unit)
+    shape = (4, 70, 90)
+    dfp = torch.as_tensor(rng.integers(-(2 ** 29), 2 ** 29, shape), device=dev)
+    eb = torch.as_tensor(rng.integers(0, 8 * xi_unit, shape), device=dev)
+    k, ll = quantize.quantize_eb(eb, xi_unit, 3)
+    n0 = k1.lorenzo_residual.launches
+    got = k1.lorenzo_residual(dfp, k, ll, xi_unit, block)
+    torch.cuda.synchronize()
+    assert k1.lorenzo_residual.launches == n0 + 1
+    assert torch.equal(got, r1.lorenzo_residual(dfp, k, ll, xi_unit, block))
+
+
+def test_face_crossed_kernel_equals_plain(dev):
+    rng = np.random.default_rng(0)
+    n_v, n = 3000, 100_000
+    u = rng.integers(-3, 4, n_v)
+    v = rng.integers(-(2 ** 29), 2 ** 29, n_v)
+    v[rng.random(n_v) < 0.3] = 0
+    verts = torch.as_tensor(rng.integers(0, n_v, (n, 3)), device=dev)
+    uu = torch.as_tensor(u, device=dev)
+    vv = torch.as_tensor(v, device=dev)
+    got = k2.face_crossed(uu, vv, verts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, r2.face_crossed(uu, vv, verts))
+
+
+@pytest.mark.parametrize("amp,cfl", [(50, 0.05), (50_000, 0.01),
+                                     (50_000, 0.2)])
+def test_sl_kernel_equals_plain(dev, amp, cfl):
+    rng = np.random.default_rng(amp)
+    xu = torch.as_tensor(rng.integers(-amp, amp + 1, (61, 83)), device=dev)
+    xv = torch.as_tensor(rng.integers(-amp, amp + 1, (61, 83)), device=dev)
+    got = k3.sl_step(xu, xv, 0.01, cfl, cfl, 2.0, 32)
+    torch.cuda.synchronize()
+    want = r3.sl_step(xu, xv, 0.01, cfl, cfl, 2.0, 32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_card_blob_equals_cpu_blob(dev):
+    u, v = synthetic.vortex_street(T=6, H=48, W=64)
+    cfg = repro_torch.CompressionConfig(eb=1e-2, dt=0.05, dx=2.0 / 63,
+                                        dy=1.0 / 47)
+    b_dev, s_dev = repro_torch.compress(u, v, cfg, device=dev)
+    b_cpu, _ = repro_torch.compress(u, v, cfg, device="cpu")
+    assert b_dev == b_cpu and s_dev["sl_block_frac"] > 0
+    for a, b in zip(repro_torch.decompress(b_dev, device=dev),
+                    repro_torch.decompress(b_dev, device="cpu")):
+        assert np.array_equal(a, b)
