@@ -5,22 +5,29 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build   -- nvcc builds the three kernels from src/repro_torch/csrc
-              into build/repro_torch (parallel, one nvcc per source)
-2. kernels -- each kernel against its plain PyTorch version on the card,
-              bitwise, on random inputs that force its edge cases
+1. build   -- nvcc builds the four kernel sources from
+              src/repro_torch/csrc into build/repro_torch (parallel, one
+              nvcc per source; semilagrange.cu holds K3 and K4)
+2. kernels -- each of the five kernels against its plain PyTorch version
+              on the card, bitwise, on random inputs that force its edge
+              cases; K4 also against one K3 launch per frame
 3. parity  -- compress on the card == compress on the CPU, byte for byte,
-              on a vortex-street field and on a field whose verify
-              rounds fire; card blobs decode equal on both devices
-4. main    -- compress -> decompress at full size: the SCF analogue
-              vortex_street(T=120, H=100, W=225) and an archive field
-              vortex_street(T=64, H=512, W=512), with the launches of
-              every kernel counted over each run, the pointwise bound
-              and FC_t = FC_s = 0 checked
-              plus a traced run with host-clock seconds per stage and a
+              with the host codec and with codec="device", on a
+              vortex-street field and on a field whose verify rounds
+              fire; card blobs decode equal on both devices
+4. main    -- compress -> decompress at full size with each codec: the
+              SCF analogue vortex_street(T=120, H=100, W=225) and an
+              archive field vortex_street(T=64, H=512, W=512), with the
+              launches of every kernel counted over each run (counts set
+              to 0 just before, read just after), the pointwise bound,
+              FC_t = FC_s = 0, the host codec's bytes and the device
+              codec's decode == the host codec's decode checked, plus a
+              traced run with host-clock seconds per stage and a
               torch.profiler run with the device's busy share
-5. table   -- each kernel on the inputs the main path gave it: equality
-              with its plain version, time, plain time and bound
+5. table   -- each kernel on the inputs the main path (device codec, SCF
+              analogue) gave it: equality with its plain version, time,
+              plain time, bound and, where one PyTorch call computes the
+              same function, that call's time
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX
@@ -49,9 +56,17 @@ SIZES = {
     "k1": (8, 256, 256),
     "k2": 1 << 20,
     "k3": (128, 192),
+    "k4": (12, 128, 192),
+    # (rows, row length, byte offset of the first row)
+    "k5": [(1, 1, 0), (2, 1000, 0), (5, 4097, 3), (8, 1 << 20, 0),
+           (2, 1 << 24, 0), (8, 1 << 24, 5)],
     "parity": (8, 128, 192),
     "main": [(120, 100, 225), (64, 512, 512)],
 }
+
+# the host codec's container bytes at the main sizes with zlib (the card's
+# machine has no zstandard), as the port wrote them from the start
+HOST_ZLIB_BYTES = {(120, 100, 225): 1246961, (64, 512, 512): 5020441}
 
 KERNELS = [
     # name, module, wrapper attribute, source, replaced Pallas function
@@ -62,6 +77,12 @@ KERNELS = [
     ("sl_step", "semilagrange", "sl_step",
      "src/repro_torch/csrc/semilagrange.cu",
      "src/repro/kernels/semilagrange/kernel.py:106"),
+    ("sl_step_batched", "semilagrange", "sl_step_batched",
+     "src/repro_torch/csrc/semilagrange.cu",
+     "src/repro/kernels/semilagrange/kernel.py:128"),
+    ("symbol_histogram", "entropy", "symbol_histogram",
+     "src/repro_torch/csrc/entropy.cu",
+     "src/repro/kernels/entropy/kernel.py:46"),
 ]
 
 
@@ -78,9 +99,11 @@ def smi_line() -> str:
 
 def modules():
     from repro_torch.kernels.cptest import kernel as k2, ref as r2
+    from repro_torch.kernels.entropy import kernel as k5, ref as r5
     from repro_torch.kernels.lorenzo import kernel as k1, ref as r1
     from repro_torch.kernels.semilagrange import kernel as k3, ref as r3
-    return {"lorenzo": (k1, r1), "cptest": (k2, r2), "semilagrange": (k3, r3)}
+    return {"lorenzo": (k1, r1), "cptest": (k2, r2), "semilagrange": (k3, r3),
+            "entropy": (k5, r5)}
 
 
 def wrappers():
@@ -198,6 +221,36 @@ def phase_kernels(dev):
         say(f"K3 sl_step == plain on {(H, W)}, max displacement {disp:.1f} "
             f"cells (d_max*n_max = 64): bitwise")
 
+    B, H, W = SIZES["k4"]
+    for amp, cfl in ((50, 0.05), (5e4, 0.01), (5e4, 0.2)):
+        xu = torch.as_tensor(rng.integers(-amp, amp + 1, (B, H, W)), device=dev)
+        xv = torch.as_tensor(rng.integers(-amp, amp + 1, (B, H, W)), device=dev)
+        xu[1::3] //= 100                         # frames with fewer substeps
+        args = (0.01, cfl, cfl, 2.0, 32)
+        got = k3.sl_step_batched(xu, xv, *args)
+        assert same(got, r3.sl_step_batched(xu, xv, *args)), "K4 != plain"
+        for b in range(B):
+            one = k3.sl_step(xu[b], xv[b], *args)
+            assert same((got[0][b], got[1][b]), one), f"K4 != K3 frame {b}"
+        say(f"K4 sl_step_batched == plain and == {B} K3 launches on "
+            f"{(B, H, W)}, amplitude {amp:g}, cfl {cfl}: bitwise")
+
+    k5, r5 = mods["entropy"]
+    for B, n, offset in SIZES["k5"]:
+        flat = torch.randint(0, 256, (offset + B * n,), dtype=torch.uint8,
+                             device=dev)
+        flat[offset::2] = torch.randint(0, 4, flat[offset::2].shape,
+                                        dtype=torch.uint8, device=dev)
+        sym = flat[offset:].view(B, n)
+        if B >= 3:
+            sym[1] = 0
+            sym[2] = 255
+        got = k5.symbol_histogram(sym)
+        assert same(got, r5.symbol_histogram(sym)), f"K5 differs {(B, n)}"
+        assert int(got.sum()) == B * n
+    say(f"K5 symbol_histogram == plain on (rows, n, offset) {SIZES['k5']} "
+        "(random, small-symbol, all-0 and all-255 rows): bitwise")
+
 
 # ----------------------------------------------------------------------
 # phase 3: card == CPU
@@ -221,18 +274,23 @@ def phase_parity(dev):
     from repro_torch.data import synthetic
 
     T, H, W = SIZES["parity"]
-    u, v = synthetic.vortex_street(T=T, H=H, W=W)
-    cases = [("vortex_street", u, v,
-              rt.CompressionConfig(eb=1e-3, **scf_meta(T, H, W))),
-             ("large_magnitude",) + large_magnitude_field()
-             + (rt.CompressionConfig(eb=6.0, mode="abs"),)]
+    fields = [("vortex_street",) + synthetic.vortex_street(T=T, H=H, W=W)
+              + (dict(eb=1e-3, **scf_meta(T, H, W)),),
+              ("large_magnitude",) + large_magnitude_field()
+              + (dict(eb=6.0, mode="abs"),)]
+    cases = [(f"{name} codec={codec}", fu, fv,
+              rt.CompressionConfig(codec=codec, **kw))
+             for codec in ("host", "device") for name, fu, fv, kw in fields]
     for name, u, v, cfg in cases:
         b_dev, s_dev = rt.compress(u, v, cfg, device=dev)
         b_cpu, s_cpu = rt.compress(u, v, cfg, device="cpu")
         assert b_dev == b_cpu, f"{name}: card and CPU blobs differ"
         assert s_dev["verify_bad_counts"] == s_cpu["verify_bad_counts"]
-        if name == "large_magnitude":
+        if name.startswith("large_magnitude"):
             assert s_dev["verify_rounds"] >= 1, "verify rounds did not fire"
+        magics = (b"CPTH1",) if cfg.codec == "device" else (b"CPTZ1",
+                                                            b"CPTL1")
+        assert b_dev[:5] in magics, f"{name}: container magic {b_dev[:5]!r}"
         ur_d, vr_d = rt.decompress(b_dev, device=dev)
         ur_c, vr_c = rt.decompress(b_dev, device="cpu")
         assert np.array_equal(ur_d, ur_c) and np.array_equal(vr_d, vr_c)
@@ -261,11 +319,15 @@ class Recorder:
     def __enter__(self):
         import importlib
 
+        by_mod = {}
         for name, mod, attr, _, _ in KERNELS:
+            by_mod.setdefault(mod, []).append((name, attr))
+        for mod, entries in by_mod.items():
             ops = importlib.import_module(f"repro_torch.kernels.{mod}.ops")
-            self._saved[name] = (ops, ops.kernel)
+            self._saved[mod] = (ops, ops.kernel)
             ops.kernel = types.SimpleNamespace(
-                **{attr: self._wrap(name, getattr(ops.kernel, attr))})
+                **{attr: self._wrap(name, getattr(ops.kernel, attr))
+                   for name, attr in entries})
         return self
 
     def __exit__(self, *exc):
@@ -307,8 +369,17 @@ class StageClock:
                "_decode_fields_parallel"),
               ("verify_check", "repro_torch.core.pipeline", "_verify_round"),
               ("symbolize", "repro_torch.core.encode", "field_sections"),
+              # the device codec's symbolize + code build + bitpack, and
+              # its three parts (nested in it)
+              ("device_codec", "repro_torch.core.entropy",
+               "field_sections_device"),
+              ("dc_symbolize", "repro_torch.core.entropy", "symbolize"),
+              ("dc_tables", "repro_torch.core.entropy", "build_tables_batch"),
+              ("dc_bitpack", "repro_torch.core.entropy", "bitpack"),
               ("pack", "repro_torch.core.encode", "pack"),
               ("unpack", "repro_torch.core.encode", "unpack"),
+              # the CPTH1 Huffman decode (nested in unpack)
+              ("huffman_decode", "repro_torch.core.entropy", "decode_symbols"),
               ("parse", "repro_torch.core.encode", "parse_field_sections")]
 
     def __init__(self):
@@ -388,7 +459,7 @@ def read_counts(fns):
 
 def phase_main(dev):
     import repro_torch as rt
-    from repro_torch.core import metrics, trajectory
+    from repro_torch.core import encode, metrics, trajectory
     from repro_torch.data import synthetic
 
     fns = wrappers()
@@ -398,101 +469,124 @@ def phase_main(dev):
         u, v = synthetic.vortex_street(T=T, H=H, W=W)
         say(f"main {T}x{H}x{W}: field generated in "
             f"{time.perf_counter() - t0:.2f} s")
-        cfg = rt.CompressionConfig(**scf_meta(T, H, W))
-        with Recorder() as rec:
-            reset_counts(fns)
-            blob, stats = rt.compress(u, v, cfg, device=dev)
-            enc_counts = read_counts(fns)
-            reset_counts(fns)
-            ur, vr = rt.decompress(blob, device=dev)
-            dec_counts = read_counts(fns)
-            kernel_ms = rec.ms()
-        # second, uninstrumented run for the host-clock times
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        blob2, _ = rt.compress(u, v, cfg, device=dev)
-        torch.cuda.synchronize()
-        enc_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ur2, vr2 = rt.decompress(blob2, device=dev)
-        torch.cuda.synchronize()
-        dec_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        with StageClock() as clock:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            blob3, _ = rt.compress(u, v, cfg, device=dev)
-            torch.cuda.synchronize()
-            traced_enc = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rt.decompress(blob3, device=dev)
-            torch.cuda.synchronize()
-            traced_dec = time.perf_counter() - t0
-        say(f"main {T}x{H}x{W}: traced run encode {traced_enc:.3f} s, "
-            f"decode {traced_dec:.3f} s; stage seconds "
-            f"{json.dumps({k: round(x, 4) for k, x in clock.seconds.items()})}")
-        for what, fn in (("compress", lambda: rt.compress(u, v, cfg,
-                                                        device=dev)),
-                         ("decompress", lambda: rt.decompress(blob,
-                                                            device=dev))):
-            wall, busy, rows = device_profile(fn)
-            say(f"main {T}x{H}x{W}: profiled {what}: wall {wall:.3f} s, "
-                f"device busy {busy:.4f} s ({100 * busy / wall:.2f}%); "
-                f"kernels (device ms, launches) "
-                f"{json.dumps(kernel_rows(rows))}; top device ops (name, ms, "
-                f"calls) "
-                f"{json.dumps([(n[:60], round(ms, 3), c) for n, ms, c in rows[:6]])}")
-        assert blob2 == blob == blob3, "compress runs gave different bytes"
-        assert np.array_equal(ur2, ur) and np.array_equal(vr2, vr)
-        assert ur.shape == u.shape and np.isfinite(ur).all() \
-            and np.isfinite(vr).all()
-        err = metrics.max_abs_error(u, v, ur, vr)
-        fc = trajectory.false_cases(u, v, ur, vr, stats["scale"], dev)
-        say(f"main {T}x{H}x{W}: ratio {stats['ratio']:.4f}, "
-            f"{len(blob)} B, verify rounds {stats['verify_rounds']} "
-            f"{stats['verify_bad_counts']}, sl_block_frac "
-            f"{stats['sl_block_frac']:.4f}, lossless_frac "
-            f"{stats['lossless_frac']:.4f}")
-        say(f"main {T}x{H}x{W}: max err {err!r} <= eb_abs "
-            f"{stats['eb_abs']!r}; FC_t {fc['FC_t']} FC_s {fc['FC_s']} "
-            f"(CP_t {fc['CP_t_orig']}, CP_slab {fc['CP_slab_orig']})")
-        say(f"main {T}x{H}x{W}: encode {enc_s:.3f} s, decode {dec_s:.3f} s "
-            f"(second call, host clock), peak device memory "
-            f"{peak / 2 ** 20:.1f} MiB")
-        say(f"main {T}x{H}x{W}: launches compress {json.dumps(enc_counts)}, "
-            f"decompress {json.dumps(dec_counts)}; summed stream ms per "
-            f"kernel (CUDA events around each call, host gaps included) "
-            f"{json.dumps({k: round(x, 4) for k, x in kernel_ms.items()})}")
-        assert err <= stats["eb_abs"], "pointwise bound violated"
-        assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
-        assert stats["sl_block_frac"] > 0, "no SL block was selected"
-        assert enc_counts["lorenzo_residual"] > 0
-        assert enc_counts["face_crossed"] > 0
-        assert enc_counts["sl_step"] > 0 and dec_counts["sl_step"] > 0
-        results.append({
-            "shape": (T, H, W),
-            "launches": {n: enc_counts[n] + dec_counts[n]
-                         for n in enc_counts},
-            "inputs": rec.inputs,
-        })
+        host_dec = None
+        for codec in ("host", "device"):
+            tag = f"main {T}x{H}x{W} codec={codec}"
+            cfg = rt.CompressionConfig(codec=codec, **scf_meta(T, H, W))
+            run = run_main(dev, tag, u, v, cfg, fns)
+            stats, blob, (ur, vr) = run["stats"], run["blob"], run["dec"]
+            assert ur.shape == u.shape and np.isfinite(ur).all() \
+                and np.isfinite(vr).all()
+            err = metrics.max_abs_error(u, v, ur, vr)
+            fc = trajectory.false_cases(u, v, ur, vr, stats["scale"], dev)
+            say(f"{tag}: ratio {stats['ratio']:.4f}, "
+                f"{len(blob)} B ({blob[:5].decode()}), verify rounds "
+                f"{stats['verify_rounds']} {stats['verify_bad_counts']}, "
+                f"sl_block_frac {stats['sl_block_frac']:.4f}, lossless_frac "
+                f"{stats['lossless_frac']:.4f}")
+            say(f"{tag}: max err {err!r} <= eb_abs "
+                f"{stats['eb_abs']!r}; FC_t {fc['FC_t']} FC_s {fc['FC_s']} "
+                f"(CP_t {fc['CP_t_orig']}, CP_slab {fc['CP_slab_orig']})")
+            assert err <= stats["eb_abs"], "pointwise bound violated"
+            assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
+            assert stats["sl_block_frac"] > 0, "no SL block was selected"
+            enc, dec = run["enc_counts"], run["dec_counts"]
+            path = [n for n, *_ in KERNELS
+                    if codec == "device" or n != "symbol_histogram"]
+            for name in path:
+                assert enc[name] + dec[name] > 0, f"{tag}: {name} not launched"
+            assert dec["sl_step"] > 0 and enc["sl_step_batched"] > 0
+            if codec == "host":
+                host_dec = (ur, vr)
+                assert enc["symbol_histogram"] == 0
+                want = HOST_ZLIB_BYTES.get((T, H, W))
+                if encode.backend_codec() == "zlib" and want is not None:
+                    assert len(blob) == want, \
+                        f"{tag}: {len(blob)} B, expected {want} B"
+                    say(f"{tag}: {len(blob)} B == the host codec's earlier "
+                        f"{want} B")
+            else:
+                assert blob[:5] == encode.MAGIC_HUF
+                assert np.array_equal(ur, host_dec[0]) \
+                    and np.array_equal(vr, host_dec[1]), \
+                    f"{tag}: decode differs from the host codec's"
+                say(f"{tag}: decode == the host codec's decode, bitwise")
+            results.append({
+                "shape": (T, H, W), "codec": codec,
+                "launches": {n: enc[n] + dec[n] for n in enc},
+                "inputs": run["inputs"],
+            })
     return results
+
+
+def run_main(dev, tag, u, v, cfg, fns):
+    """One field through compress -> decompress on the card: a recorded
+    run with launch counts, a timed run, a traced run and a profiled run.
+    Returns the first run's blob, stats, decode, counts and inputs."""
+    import repro_torch as rt
+
+    with Recorder() as rec:
+        reset_counts(fns)
+        blob, stats = rt.compress(u, v, cfg, device=dev)
+        enc_counts = read_counts(fns)
+        reset_counts(fns)
+        ur, vr = rt.decompress(blob, device=dev)
+        dec_counts = read_counts(fns)
+        kernel_ms = rec.ms()
+    # second, uninstrumented run for the host-clock times
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blob2, _ = rt.compress(u, v, cfg, device=dev)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ur2, vr2 = rt.decompress(blob2, device=dev)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with StageClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob3, _ = rt.compress(u, v, cfg, device=dev)
+        torch.cuda.synchronize()
+        traced_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.decompress(blob3, device=dev)
+        torch.cuda.synchronize()
+        traced_dec = time.perf_counter() - t0
+    say(f"{tag}: traced run encode {traced_enc:.3f} s, "
+        f"decode {traced_dec:.3f} s; stage seconds "
+        f"{json.dumps({k: round(x, 4) for k, x in clock.seconds.items()})}")
+    for what, fn in (("compress", lambda: rt.compress(u, v, cfg, device=dev)),
+                     ("decompress", lambda: rt.decompress(blob, device=dev))):
+        wall, busy, rows = device_profile(fn)
+        say(f"{tag}: profiled {what}: wall {wall:.3f} s, "
+            f"device busy {busy:.4f} s ({100 * busy / wall:.2f}%); "
+            f"kernels (device ms, launches) "
+            f"{json.dumps(kernel_rows(rows))}; top device ops (name, ms, "
+            f"calls) "
+            f"{json.dumps([(n[:60], round(ms, 3), c) for n, ms, c in rows[:6]])}")
+    assert blob2 == blob == blob3, "compress runs gave different bytes"
+    assert np.array_equal(ur2, ur) and np.array_equal(vr2, vr)
+    say(f"{tag}: encode {enc_s:.3f} s, decode {dec_s:.3f} s "
+        f"(second call, host clock), peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB")
+    say(f"{tag}: launches compress {json.dumps(enc_counts)}, "
+        f"decompress {json.dumps(dec_counts)}; summed stream ms per "
+        f"kernel (CUDA events around each call, host gaps included) "
+        f"{json.dumps({k: round(x, 4) for k, x in kernel_ms.items()})}")
+    return {"blob": blob, "stats": stats, "dec": (ur, vr),
+            "enc_counts": enc_counts, "dec_counts": dec_counts,
+            "inputs": rec.inputs}
 
 
 # ----------------------------------------------------------------------
 # phase 5: the kernel table at the main path's shapes
 # ----------------------------------------------------------------------
 
-def bound_terms(name, args):
-    """(bytes, f64 operations) the function needs on these inputs."""
-    if name == "lorenzo_residual":
-        dfp = args[0]
-        return dfp.numel() * (8 + 4 + 1 + 8), 0
-    if name == "face_crossed":
-        u_flat, _, verts = args
-        n_used = int(torch.unique(verts).numel())
-        return verts.numel() * 8 + n_used * 16 + verts.shape[0], 0
-    xu, xv, g2f, cx, cy, d_max, n_max = args
+def sl_ops_count(xu, xv, g2f, cx, cy, d_max, n_max):
+    """f64 operations of the SL stepper on these inputs (any stack)."""
     u = xu.to(torch.float64) * g2f
     v = xv.to(torch.float64) * g2f
     d_inf = torch.maximum(u.abs() * cx, v.abs() * cy)
@@ -503,12 +597,44 @@ def bound_terms(name, args):
     # two bilinear samples + 6
     per = 44 + torch.where(rk, torch.full_like(n_sub, 38.0),
                            2.0 + 36.0 * n_sub)
-    return xu.numel() * 32, float(per.sum())
+    return float(per.sum())
+
+
+def bound_terms(name, args):
+    """(bytes, f64 operations) the function needs on these inputs: each
+    input read once, each output written once."""
+    if name == "lorenzo_residual":
+        dfp = args[0]
+        return dfp.numel() * (8 + 4 + 1 + 8), 0
+    if name == "face_crossed":
+        u_flat, _, verts = args
+        n_used = int(torch.unique(verts).numel())
+        return verts.numel() * 8 + n_used * 16 + verts.shape[0], 0
+    if name == "symbol_histogram":
+        # n uint8 read, 256 int32 written per row; the integer adds are
+        # not counted (the card's peak table has no scalar integer rate)
+        sym = args[0]
+        return sym.numel() + sym.shape[0] * 256 * 4, 0
+    # sl_step / sl_step_batched: 16 B in, 16 B out per pixel
+    return args[0].numel() * 32, sl_ops_count(*args)
+
+
+def library_call(name, args):
+    """One PyTorch call computing the kernel's function on the same
+    inputs (its operands prepared outside the timing), or None."""
+    if name != "symbol_histogram":
+        return None
+    sym = args[0]
+    B = sym.shape[0]
+    rows = torch.arange(B, dtype=torch.int64, device=sym.device)[:, None]
+    keys = (sym.to(torch.int64) + (rows << 8)).reshape(-1)
+    return lambda: torch.bincount(keys, minlength=B * 256)
 
 
 def phase_table(main):
     mods = modules()
-    run = main[0]
+    run = next(r for r in main
+               if r["shape"] == SIZES["main"][0] and r["codec"] == "device")
     rows = []
     for name, mod, attr, src, replaces in KERNELS:
         kmod, rmod = mods[mod]
@@ -522,6 +648,10 @@ def phase_table(main):
         err = max_abs_err(got, want)
         call_ms = time_ms(lambda: kern(*args), 50)
         plain_ms = time_ms(lambda: plain(*args), 5)
+        lib = library_call(name, args)
+        if lib is not None:
+            assert same(lib().reshape(want.shape).to(want.dtype), want)
+        library_ms = time_ms(lib, 50) if lib is not None else None
         _, _, prof_rows = device_profile(
             lambda: [kern(*args) for _ in range(50)])
         dev_ms, n = kernel_rows(prof_rows)[name]
@@ -535,10 +665,12 @@ def phase_table(main):
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         how = (f"device, {n} profiled launches" if n
                else "per call: the profiler saw no device time")
+        lib_txt = (f", library call {library_ms:.5f} ms"
+                   if library_ms is not None else "")
         say(f"table {name}: main-path inputs {shapes}, kernel {ms:.5f} ms "
             f"({how}), {call_ms:.5f} ms per call "
-            f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per call, "
-            f"bound {max(t_bytes, t_ops):.6f} ms "
+            f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per "
+            f"call{lib_txt}, bound {max(t_bytes, t_ops):.6f} ms "
             f"({nbytes} B, {ops:.0f} f64 ops), launches {run['launches'][name]}")
         rows.append({
             "name": name, "route": "cuda", "source": src,
@@ -547,7 +679,7 @@ def phase_table(main):
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": library_ms,
         })
     return rows
 

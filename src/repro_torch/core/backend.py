@@ -1,4 +1,4 @@
-"""Dispatch of the three hot ops of the pipeline.
+"""Dispatch of the hot ops of the pipeline.
 
 The tensor's device picks the implementation: on a CUDA tensor each op
 launches its hand-written Hopper kernel (``repro_torch/kernels``), on a
@@ -7,19 +7,22 @@ backend name and no fallback between the two.
 
 Determinism contract:
 
-* the two integer ops (Lorenzo residual, SoS predicate) are exact int64
-  and equal on every device;
+* the integer ops (Lorenzo residual, SoS predicate, symbol histogram)
+  are exact and equal on every device;
 * the SL stepper is f64 with every operation rounded once, in the op
   order of the JAX package's numpy stepper: kernel and plain version are
   bitwise equal to that stepper, so the header records
   ``sl_backend: "numpy"`` and the JAX package replays the same
-  predictions when it decodes a port container.
+  predictions when it decodes a port container.  The per-frame (K3)
+  and batched (K4) kernels share one device function, so predicting the
+  encoder's T-1 frames in one batched call changes no integer.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.cptest import ops as _cp_ops
+from ..kernels.entropy import ops as _ent_ops
 from ..kernels.lorenzo import ops as _lz_ops
 from ..kernels.semilagrange import ops as _sl_ops
 
@@ -40,23 +43,23 @@ def lorenzo_residual(dfp, k, lossless, xi_unit: int, block: int):
 
 
 def sl_stepper(cfl_x: float, cfl_y: float, d_max: float, n_max: int):
-    """The per-frame SL prediction F(xu_prev, xv_prev, g2f) -> (pu, pv),
-    shared by the encoder, the verify simulation and the decoder."""
+    """The per-frame SL prediction F(xu_prev, xv_prev, g2f) -> (pu, pv)
+    of the verify simulation and the decoder, which step frames in
+    sequence."""
     def step(xu_prev, xv_prev, g2f):
         return _sl_ops.sl_step(xu_prev.contiguous(), xv_prev.contiguous(),
                                g2f, cfl_x, cfl_y, d_max, n_max)
     return step
 
 
-def sl_predictions(xu, xv, g2f: float, stepper):
-    """Encoder-side predictions for frames 1..T-1, one stepper call per
-    frame.  Returns (T-1, H, W) int64 stacks."""
-    pus, pvs = [], []
-    for t in range(1, xu.shape[0]):
-        pu, pv = stepper(xu[t - 1], xv[t - 1], g2f)
-        pus.append(pu)
-        pvs.append(pv)
-    return torch.stack(pus), torch.stack(pvs)
+def sl_predictions(xu, xv, g2f: float, cfl_x: float, cfl_y: float,
+                   d_max: float, n_max: int):
+    """Encoder-side predictions of frames 1..T-1 from frames 0..T-2 of the
+    known (T, H, W) fields, in one batched stepper call.  Returns
+    (T-1, H, W) int64 stacks."""
+    return _sl_ops.sl_step_batched(xu[:-1].contiguous(),
+                                   xv[:-1].contiguous(), g2f, cfl_x, cfl_y,
+                                   d_max, n_max)
 
 
 def face_crossed(u_flat, v_flat, verts):
@@ -64,3 +67,9 @@ def face_crossed(u_flat, v_flat, verts):
     ids, gathered from the flat value arrays.  Returns (N,) bool."""
     return _cp_ops.face_crossed(u_flat.contiguous(), v_flat.contiguous(),
                                 verts.contiguous())
+
+
+def symbol_histogram(sym):
+    """Per-row 256-bin histogram of a (B, n) uint8 symbol stack.  Returns
+    (B, 256) int32 exact counts."""
+    return _ent_ops.symbol_histogram(sym.contiguous())

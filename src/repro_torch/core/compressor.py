@@ -11,6 +11,10 @@ container is the JAX package's monolithic format (version 2, header
 ``sl_backend: "numpy"``), byte-equal to what the JAX package writes with
 its numpy SL stepper for the same field and config.
 
+``codec="device"`` entropy-codes the residuals on the device and writes
+the JAX package's CPTH1 container, byte-equal to its ``codec="device"``
+container with the numpy SL stepper; ``decompress`` reads both kinds.
+
 ``CompressionConfig`` keeps the JAX package's fields and defaults.  The
 options whose code paths are not ported raise NotImplementedError
 naming their ROADMAP item; ``backend`` must stay None (the device picks
@@ -51,7 +55,7 @@ class CompressionConfig:
     tiling: Optional[object] = None   # tiled pipeline (not ported)
     track_index: bool = True          # tiled only
     batch_units: bool = True          # tiled only
-    codec: str = "host"               # 'host' | 'device' (not ported)
+    codec: str = "host"               # 'host' (CPTZ1/CPTL1) | 'device' (CPTH1)
     batch_cap: int = 8                # tiled only
     q_in_frames: Optional[int] = None   # streaming only
     q_out_units: Optional[int] = None   # streaming only
@@ -97,11 +101,7 @@ def _refuse_unported(cfg: CompressionConfig, autotune, target_ratio):
         raise NotImplementedError(
             "the legacy fused=False binding is not ported to repro_torch "
             "(ROADMAP Queue 1 item 4: it exists only for A/B timing)")
-    if cfg.codec == "device":
-        raise NotImplementedError(
-            "codec='device' (the device entropy stage) is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 7)")
-    if cfg.codec != "host":
+    if cfg.codec not in ("host", "device"):
         raise ValueError(f"unknown codec {cfg.codec!r}; expected 'host' "
                          "or 'device'")
     ebpolicy.normalize(cfg.eb_policy)

@@ -1,14 +1,20 @@
-"""The monolithic host container (the JAX package's CPTZ1 / CPTL1 format).
+"""The monolithic containers (the JAX package's CPTZ1 / CPTL1 / CPTH1
+formats).
 
 Residual symbols are zigzag-folded and escape-coded into a uint8 stream
-(values >= 255 escape to an int64 side list).  A container is
+(values >= 255 escape to an int64 side list).  A host-codec container is
 
     magic | codec(u32 header length | msgpack header | raw sections)
 
 with the zstd codec (magic ``CPTZ1``) when the optional ``zstandard``
 module is importable, else zlib (magic ``CPTL1``, at most level 6), the
 same fallback as the JAX package, so the bytes are equal for equal
-sections.  The header is written by ``_msgpack`` (byte-equal to
+sections.  The device-codec container (magic ``CPTH1``, written when a
+section is a :class:`HuffSection`) stores the payload raw: symbol
+sections are canonical-Huffman bitstreams with their length table in the
+section index, the other sections are zlib level 6 each where that
+shrinks them.  It uses no zstd, so its bytes do not depend on the host.
+The header is written by ``_msgpack`` (byte-equal to
 ``msgpack.packb(..., use_bin_type=True)``).  Every integrity failure on
 the read path raises :class:`ContainerError`.
 """
@@ -30,7 +36,7 @@ except ImportError:  # the zlib container is the fallback
 MAGIC = b"CPTZ1"          # zstd-backed container
 MAGIC_ZLIB = b"CPTL1"     # zlib fallback container (same layout inside)
 MAGIC_TILED = b"CPTT1"    # tiled container (not ported)
-MAGIC_HUF = b"CPTH1"      # device-entropy container (not ported)
+MAGIC_HUF = b"CPTH1"      # device-entropy container (raw payload)
 ESC = 255
 
 
@@ -152,11 +158,147 @@ def parse_field_sections(sections: dict, shape):
 
 
 # ----------------------------------------------------------------------
+# canonical Huffman decode (host numpy, bit-exact with the JAX package)
+# ----------------------------------------------------------------------
+
+def canonical_codes(lengths):
+    """(codes uint32, lengths) canonical assignment."""
+    order = np.lexsort((np.arange(len(lengths)), lengths))
+    codes = np.zeros(len(lengths), dtype=np.uint32)
+    code = 0
+    prev_len = 0
+    for s in order:
+        ln = int(lengths[s])
+        if ln == 0:
+            continue
+        if prev_len == 0:
+            prev_len = ln
+        code <<= ln - prev_len
+        codes[s] = code
+        code += 1
+        prev_len = ln
+    return codes, lengths
+
+
+def _peek_tables(lengths, codes, maxlen):
+    peek = np.zeros(1 << maxlen, dtype=np.uint16)
+    plen = np.zeros(1 << maxlen, dtype=np.uint8)
+    for s in np.nonzero(np.asarray(lengths) > 0)[0]:
+        ln = int(lengths[s])
+        prefix = int(codes[s]) << (maxlen - ln)
+        span = 1 << (maxlen - ln)
+        peek[prefix: prefix + span] = s
+        plen[prefix: prefix + span] = ln
+    return peek, plen
+
+
+def _huffman_decode_scalar(peek, plen, maxlen, data, n):
+    """Per-symbol loop for short streams and deep tables."""
+    bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8))
+    out = np.empty(n, dtype=np.uint8)
+    pos = 0
+    bits = np.concatenate([bits, np.zeros(maxlen, dtype=np.uint8)])
+    pw = (1 << np.arange(maxlen - 1, -1, -1)).astype(np.uint64)
+    for i in range(n):
+        window = int(bits[pos: pos + maxlen] @ pw)
+        out[i] = peek[window]
+        pos += int(plen[window])
+    return out
+
+
+# the peek table is capped at 2^24 entries; deeper tables take the
+# scalar path
+_VEC_MAXLEN = 24
+_STRIDE_LOG2 = 6
+
+
+def huffman_decode(lengths, data, n, _chunk=1 << 22):
+    """Table-driven canonical Huffman decode, vectorized.
+
+    Stage 1 decodes (symbol, code length) at every bit offset of the
+    stream with the canonical peek table, in ``_chunk``-sized blocks.
+    Stage 2 resolves the chain of symbol boundaries pos_{i+1} = pos_i +
+    len(pos_i) with 2^k-symbol jump tables (k <= 6), a Python walk over
+    every 64th boundary and an interleaving expansion back to all n."""
+    if n == 0:
+        return np.empty(0, dtype=np.uint8)
+    codes, _ = canonical_codes(lengths)
+    maxlen = int(lengths.max()) if lengths.max() > 0 else 1
+    peek, plen = _peek_tables(lengths, codes, maxlen)
+    if maxlen > _VEC_MAXLEN or n < 2048:
+        return _huffman_decode_scalar(peek, plen, maxlen, data, n)
+
+    raw = np.frombuffer(data, dtype=np.uint8)
+    nbits = 8 * len(raw)
+    # 64-bit big-endian rolling windows, one per byte offset
+    raw = np.concatenate([raw, np.zeros(16, dtype=np.uint8)])
+    nwin = len(raw) - 8
+    w64 = np.zeros(nwin, dtype=np.uint64)
+    for k in range(8):
+        w64 |= raw[k: k + nwin].astype(np.uint64) << np.uint64(56 - 8 * k)
+
+    dom = nbits + maxlen + 1          # padded position domain
+    pos_dtype = np.int32 if dom < 2 ** 31 else np.int64
+    nxt = np.empty(dom, dtype=pos_dtype)
+    sym_at = np.empty(dom, dtype=np.uint8)
+    top = np.uint64(64 - maxlen)
+    for lo in range(0, dom, _chunk):
+        hi = min(lo + _chunk, dom)
+        p = np.arange(lo, hi, dtype=np.int64)
+        win = (w64[p >> 3] << (p & 7).astype(np.uint64)) >> top
+        sym_at[lo:hi] = peek[win]
+        nxt[lo:hi] = np.minimum(p + plen[win], dom - 1).astype(pos_dtype)
+
+    L = _STRIDE_LOG2
+    J = [nxt]
+    for _ in range(L):
+        J.append(J[-1][J[-1]])
+    n_anchor = -(-n // (1 << L))
+    anchors = np.empty(n_anchor, dtype=np.int64)
+    jl = J[L]
+    pos = 0
+    for i in range(n_anchor):
+        anchors[i] = pos
+        pos = int(jl[pos])
+    P = anchors
+    for k in range(L - 1, -1, -1):
+        Q = np.empty(2 * len(P), dtype=np.int64)
+        Q[0::2] = P
+        Q[1::2] = J[k][P]
+        P = Q
+    return sym_at[P[:n]]
+
+
+# ----------------------------------------------------------------------
 # container
 # ----------------------------------------------------------------------
 
+class HuffSection:
+    """A section whose bytes are already entropy-coded (device codec).
+
+    ``data`` is a canonical-Huffman bitstream over ``n`` uint8 symbols,
+    packed MSB-first; ``lengths`` is the 256-entry code-length table
+    (uint8, at most ``entropy.L_MAX`` bits), stored in the section index
+    so ``unpack`` rebuilds the exact uint8 symbol array."""
+
+    __slots__ = ("data", "lengths", "n")
+
+    def __init__(self, data: bytes, lengths, n: int):
+        self.data = bytes(data)
+        self.lengths = np.ascontiguousarray(lengths, dtype=np.uint8)
+        self.n = int(n)
+
+
+# small non-symbol sections of a CPTH1 frame get an individual zlib pass;
+# below this size the zlib framing is pure overhead
+_HUF_ZLIB_MIN = 64
+
+
 def pack(header: dict, sections: dict, level: int = 12) -> bytes:
-    """Assemble one CPTZ1 / CPTL1 container frame."""
+    """Assemble one container frame: CPTH1 when a section is a
+    ``HuffSection``, else CPTZ1 / CPTL1."""
+    if any(isinstance(a, HuffSection) for a in sections.values()):
+        return _pack_huf(header, sections)
     body = io.BytesIO()
     sec_index = {}
     for name, arr in sections.items():
@@ -177,26 +319,82 @@ def pack(header: dict, sections: dict, level: int = 12) -> bytes:
     return magic + codec_compress(payload, level)
 
 
+def _pack_huf(header: dict, sections: dict) -> bytes:
+    body = io.BytesIO()
+    sec_index = {}
+    for name, arr in sections.items():
+        if isinstance(arr, HuffSection):
+            sec_index[name] = {
+                "off": body.tell(),
+                "len": len(arr.data),
+                "dtype": "uint8",
+                "shape": [arr.n],
+                "enc": "huff",
+                "lengths": arr.lengths.tobytes(),
+            }
+            body.write(arr.data)
+            continue
+        raw = np.ascontiguousarray(arr).tobytes()
+        meta = {
+            "off": body.tell(),
+            "len": len(raw),
+            "dtype": str(arr.dtype),
+            "shape": list(arr.shape),
+        }
+        if len(raw) >= _HUF_ZLIB_MIN:
+            comp = zlib.compress(raw, 6)
+            if len(comp) < len(raw):
+                meta["len"] = len(comp)
+                meta["enc"] = "zlib"
+                raw = comp
+        sec_index[name] = meta
+        body.write(raw)
+    header = dict(header)
+    header["sections"] = sec_index
+    header["codec"] = "huffman"
+    hdr = _msgpack.packb(header)
+    return MAGIC_HUF + struct.pack("<I", len(hdr)) + hdr + body.getvalue()
+
+
 def _decode_section(name: str, meta: dict, raw: bytes) -> np.ndarray:
-    if meta.get("enc") is not None:
-        raise ContainerError(
-            f"section {name!r}: unknown encoding {meta.get('enc')!r}")
+    """One section's bytes -> array, honoring its per-section ``enc``."""
+    enc = meta.get("enc")
     try:
-        arr = np.frombuffer(raw, dtype=np.dtype(meta["dtype"]))
-        return arr.reshape(meta["shape"])
-    except (TypeError, ValueError) as e:
+        dtype, shape = meta["dtype"], meta["shape"]
+        if enc == "huff":
+            lengths = np.frombuffer(meta["lengths"], np.uint8)
+            if lengths.size != 256:
+                raise ContainerError(
+                    f"section {name!r}: huffman table has {lengths.size} "
+                    f"entries, expected 256")
+            n = int(np.prod(shape, dtype=np.int64))
+            from . import entropy
+            arr = entropy.decode_symbols(lengths, raw, n)
+        elif enc == "zlib":
+            arr = np.frombuffer(zlib.decompress(raw), dtype=np.dtype(dtype))
+        elif enc is None:
+            arr = np.frombuffer(raw, dtype=np.dtype(dtype))
+        else:
+            raise ContainerError(
+                f"section {name!r}: unknown encoding {enc!r}")
+        return arr.reshape(shape)
+    except ContainerError:
+        raise
+    except (TypeError, ValueError, zlib.error) as e:
         raise ContainerError(f"corrupt section {name!r}: {e}") from e
 
 
 def unpack(blob: bytes):
     """Container bytes -> (header dict, {name: numpy array})."""
     magic = bytes(blob[: len(MAGIC)])
-    if magic in (MAGIC_TILED, MAGIC_HUF):
+    if magic == MAGIC_TILED:
         raise NotImplementedError(
-            f"{magic.decode()} containers are not ported to repro_torch "
-            "yet (ROADMAP Queue 1 items 6-7)")
+            "CPTT1 (tiled) containers are not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 6)")
+    if magic == MAGIC_HUF:
+        return _parse_payload(bytes(blob[len(MAGIC_HUF):]))
     if magic not in (MAGIC, MAGIC_ZLIB):
-        raise ContainerError("not a CPTZ/CPTL container (bad magic)")
+        raise ContainerError("not a CPTZ/CPTL/CPTH container (bad magic)")
     codec = "zstd" if magic == MAGIC else "zlib"
     return _parse_payload(codec_decompress(bytes(blob[len(MAGIC):]), codec))
 

@@ -5,7 +5,7 @@ decode.
                -> symbolize -> pack
 
 Every stage runs on the device of the tensors it is given (the caller's
-``device``): on CUDA the three hot ops launch their kernels through
+``device``): on CUDA the hot ops launch their kernels through
 core/backend.py, on the CPU they run the plain versions.  Integer stages
 are exact int64, the reconstruction and pointwise checks are elementwise
 IEEE f64, the SL stepper is the f64 stepper of backend.py and the MoP
@@ -13,9 +13,14 @@ rate model runs on the host (mop.py), so the container bytes do not
 depend on the device and equal the JAX package's for the same plan with
 its numpy SL stepper.
 
-Only the monolithic fused plan with the host codec is ported.  The
-legacy (``fused=False``), tiled, streaming and device-entropy bindings
-are refused (ROADMAP Queue 1).
+The plan's ``codec`` picks the symbolize + pack stage: ``"host"``
+fetches the residuals and writes a CPTZ1 / CPTL1 container
+(encode.field_sections), ``"device"`` entropy-codes them where they are
+and writes a CPTH1 container (entropy.field_sections_device).  Decode
+reads either, on the host.
+
+Only the monolithic fused plan is ported.  The legacy (``fused=False``),
+tiled and streaming bindings are refused (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import time
 import numpy as np
 import torch
 
-from . import backend, ebound, encode, grid, mop, predictors, quantize
+from . import (backend, ebound, encode, entropy, grid, mop, predictors,
+               quantize)
 
 FORMAT_VERSION = 2
 # the adaptive (per-tile policy) monolithic container; its decode path
@@ -54,6 +60,7 @@ class PipelinePlan:
     verify: bool = True
     max_rounds: int = 12
     sl_backend: str = backend.SL_BACKEND
+    codec: str = "host"              # symbolize + pack: host | device
 
     @property
     def g2f(self) -> float:
@@ -81,6 +88,7 @@ def plan_from_cfg(cfg, scale: float, eb_abs: float) -> PipelinePlan:
         zstd_level=cfg.zstd_level,
         verify=cfg.verify,
         max_rounds=cfg.max_rounds,
+        codec=cfg.codec,
     )
 
 
@@ -100,10 +108,11 @@ def plan_from_header(header: dict) -> PipelinePlan:
             f"container SL stepper {tag!r} cannot be replayed by "
             f"repro_torch (decodes {backend.SL_DECODABLE}): 'pallas' is "
             "the f32 TPU stepper, which is not ported")
-    if header.get("codec") not in ("zstd", "zlib"):
-        raise NotImplementedError(
-            f"container codec {header.get('codec')!r} is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 7)")
+    codec = header.get("codec")
+    if codec not in ("zstd", "zlib", "huffman"):
+        raise encode.ContainerError(
+            f"unknown container codec {codec!r}; expected 'zstd', 'zlib' "
+            "or 'huffman'")
     try:
         plan = PipelinePlan(
             name=name,
@@ -120,6 +129,7 @@ def plan_from_header(header: dict) -> PipelinePlan:
             d_max=float(header["d_max"]),
             n_max=int(header["n_max"]),
             sl_backend=tag,
+            codec="device" if codec == "huffman" else "host",
         )
     except (KeyError, TypeError, ValueError) as e:
         raise encode.ContainerError(f"malformed container header: {e}") \
@@ -390,7 +400,8 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
         return res_u, res_v, np.zeros(nb, dtype=bool), lossless
     xu, xv, k, lossless = _quantize_core(ufp, vfp, eb_vertex, lossless_extra,
                                          p.xi_unit, p.n_levels)
-    pu, pv = backend.sl_predictions(xu, xv, ex.g2f, ex.stepper)
+    pu, pv = backend.sl_predictions(xu, xv, ex.g2f, p.cfl_x, p.cfl_y,
+                                    p.d_max, p.n_max)
     if p.predictor == "sl":
         res_u = torch.cat([predictors.d2_block(xu[:1], p.block), xu[1:] - pu])
         res_v = torch.cat([predictors.d2_block(xv[:1], p.block), xv[1:] - pv])
@@ -497,9 +508,14 @@ def pack_field(ex: PlanExecutor, u, v, enc: FieldEncode, t0: float):
     """Symbolize + pack + stats for a full-field encode."""
     p = ex.plan
     lossless_np = enc.lossless.cpu().numpy()
-    sections = encode.field_sections(
-        enc.res_u.cpu().numpy(), enc.res_v.cpu().numpy(), lossless_np,
-        u[lossless_np], v[lossless_np], enc.bm)
+    if p.codec == "device":
+        sections = entropy.field_sections_device(
+            enc.res_u, enc.res_v, lossless_np, u[lossless_np],
+            v[lossless_np], enc.bm)
+    else:
+        sections = encode.field_sections(
+            enc.res_u.cpu().numpy(), enc.res_v.cpu().numpy(), lossless_np,
+            u[lossless_np], v[lossless_np], enc.bm)
     blob = encode.pack(field_header(p, u.shape), sections, p.zstd_level)
     t1 = time.perf_counter()
     orig_bytes = u.nbytes + v.nbytes

@@ -12,9 +12,9 @@ and bilinear-sample frame t-1 at the departure point.
 ``sl_predict_frame`` is the plain float64 version: a literal
 transcription of the JAX package's numpy stepper
 (``backend._sl_predict_frame_np``), op for op, so on the CPU it is
-bitwise equal to that stepper.  Each torch op rounds once (no fused
-multiply-add), which is also what the CUDA kernel does (built with
-``-fmad=false``).
+bitwise equal to that stepper, one frame or a stack of frames.  Each
+torch op rounds once (no fused multiply-add), which is also what the
+CUDA kernels do (built with ``-fmad=false``).
 """
 from __future__ import annotations
 
@@ -82,9 +82,10 @@ def lorenzo_encode(x: torch.Tensor, block: int = DEFAULT_BLOCK) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def bilinear(f: torch.Tensor, fi: torch.Tensor, fj: torch.Tensor):
-    """Bilinear sample of f (H, W) f64 at float positions, summed left to
-    right as (1-a)(1-b) f00 + (1-a) b f01 + a (1-b) f10 + a b f11."""
-    H, W = f.shape
+    """Bilinear sample of f (..., H, W) f64 at float positions of the same
+    shape (each plane sampled on its own), summed left to right as
+    (1-a)(1-b) f00 + (1-a) b f01 + a (1-b) f10 + a b f11."""
+    H, W = f.shape[-2:]
     i0 = torch.clamp(torch.floor(fi), 0, H - 1)
     j0 = torch.clamp(torch.floor(fj), 0, W - 1)
     a = fi - i0
@@ -93,10 +94,16 @@ def bilinear(f: torch.Tensor, fi: torch.Tensor, fj: torch.Tensor):
     j0 = j0.to(torch.int64)
     i1 = torch.clamp(i0 + 1, max=H - 1)
     j1 = torch.clamp(j0 + 1, max=W - 1)
-    f00 = f[i0, j0]
-    f01 = f[i0, j1]
-    f10 = f[i1, j0]
-    f11 = f[i1, j1]
+    planes = f.reshape(-1, H * W)
+
+    def at(i, j):
+        return planes.gather(1, (i * W + j).reshape(planes.shape[0], -1)) \
+            .reshape(f.shape)
+
+    f00 = at(i0, j0)
+    f01 = at(i0, j1)
+    f10 = at(i1, j0)
+    f11 = at(i1, j1)
     return ((1 - a) * (1 - b) * f00 + (1 - a) * b * f01
             + a * (1 - b) * f10 + a * b * f11)
 
@@ -106,18 +113,24 @@ def sl_predict_frame(xu_prev: torch.Tensor, xv_prev: torch.Tensor,
                      d_max: float, n_max: int):
     """Predict frame t's base-grid integers from frame t-1's.
 
-    xu_prev, xv_prev: (H, W) int64.  Returns (pu, pv) (H, W) int64.
+    xu_prev, xv_prev: (H, W) int64, or a (B, H, W) stack of independent
+    frames.  Returns (pu, pv) int64 of the same shape.  The substep loop
+    runs to the largest count of the stack; steps past a pixel's own
+    count are masked identities, so each frame of a stack gets the
+    integers it gets alone.
     """
     f64 = torch.float64
     g2 = float(g2f)
     u = xu_prev.to(f64) * g2
     v = xv_prev.to(f64) * g2
-    H, W = u.shape
+    H, W = u.shape[-2:]
     cx = float(cfl_x)
     cy = float(cfl_y)
     ii, jj = torch.meshgrid(torch.arange(H, dtype=f64, device=u.device),
                             torch.arange(W, dtype=f64, device=u.device),
                             indexing="ij")
+    ii = ii.expand(u.shape)
+    jj = jj.expand(u.shape)
     d_inf = torch.maximum(torch.abs(u) * cx, torch.abs(v) * cy)
 
     i_h = torch.clamp(ii - 0.5 * v * cy, 0.0, H - 1.0)

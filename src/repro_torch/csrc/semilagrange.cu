@@ -1,9 +1,16 @@
-// K3: semi-Lagrangian stepper, one frame, float64.  Build with -fmad=false.
+// K3 and K4: semi-Lagrangian stepper, float64.  Build with -fmad=false.
 //
-// Replaces the Pallas TPU kernel
+// K3 (sl_step) replaces the Pallas TPU kernel
 //   src/repro/kernels/semilagrange/kernel.py::sl_predict_pallas
-// (the per-frame SL stepper shared by encode, the verify simulation and
-// decode).  It maps frame t-1's base-grid integers (xu, xv) to frame t's
+// (the per-frame SL stepper of the verify simulation and decode, which
+// must step frames in sequence).  K4 (sl_step_batched) replaces
+//   src/repro/kernels/semilagrange/kernel.py::sl_predict_batched_pallas
+// (the same stepper over a (B, H, W) stack of independent frames): the
+// encoder predicts frames 1..T-1 from frames 0..T-2 in one launch.  Both
+// kernels run the one __device__ function sl_pixel under the same flags,
+// so K4's integers equal B launches of K3 bit for bit by construction.
+//
+// The stepper maps frame t-1's base-grid integers (xu, xv) to frame t's
 // integer predictions (pu, pv):
 //   u = (double)xu * g2, v = (double)xv * g2
 //   d_inf = max(|u| cx, |v| cy)
@@ -31,7 +38,9 @@
 // scattered int64 values of the two planes, through L1/L2 (a plane of
 // the main path is well under 1 MB); each substep depends on the last.
 // Compulsory traffic is 16 B in and 16 B out per pixel.  One thread per
-// output pixel, no shared memory.
+// output pixel, no shared memory.  K3 launches one 100x225 frame at a
+// time, too few threads to fill the card; K4 gives it all B frames of
+// the encoder at once.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,14 +78,14 @@ __device__ double bilinear(const int64_t* __restrict__ f, double g2,
   return r;
 }
 
-__global__ void sl_step_kernel(const int64_t* __restrict__ xu,
-                               const int64_t* __restrict__ xv,
-                               int64_t* __restrict__ pu,
-                               int64_t* __restrict__ pv, int H, int W,
-                               double g2, double cx, double cy, double d_max,
-                               int n_max) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)H * W) return;
+// pixel idx of the (H, W) planes xu, xv -> its predictions pu[idx], pv[idx]
+__device__ __forceinline__ void sl_pixel(const int64_t* __restrict__ xu,
+                                         const int64_t* __restrict__ xv,
+                                         int64_t* __restrict__ pu,
+                                         int64_t* __restrict__ pv,
+                                         int64_t idx, int H, int W, double g2,
+                                         double cx, double cy, double d_max,
+                                         int n_max) {
   const double ii = (double)(idx / W);
   const double jj = (double)(idx % W);
   const double u0 = (double)xu[idx] * g2;
@@ -111,6 +120,31 @@ __global__ void sl_step_kernel(const int64_t* __restrict__ xu,
   pv[idx] = (int64_t)rint(bilinear(xv, g2, i_s, j_s, H, W) / g2);
 }
 
+__global__ void sl_step_kernel(const int64_t* __restrict__ xu,
+                               const int64_t* __restrict__ xv,
+                               int64_t* __restrict__ pu,
+                               int64_t* __restrict__ pv, int H, int W,
+                               double g2, double cx, double cy, double d_max,
+                               int n_max) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)H * W) return;
+  sl_pixel(xu, xv, pu, pv, idx, H, W, g2, cx, cy, d_max, n_max);
+}
+
+__global__ void sl_step_batched_kernel(const int64_t* __restrict__ xu,
+                                       const int64_t* __restrict__ xv,
+                                       int64_t* __restrict__ pu,
+                                       int64_t* __restrict__ pv, int B, int H,
+                                       int W, double g2, double cx, double cy,
+                                       double d_max, int n_max) {
+  const int64_t hw = (int64_t)H * W;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * hw) return;
+  const int64_t off = (idx / hw) * hw;
+  sl_pixel(xu + off, xv + off, pu + off, pv + off, idx - off, H, W, g2, cx,
+           cy, d_max, n_max);
+}
+
 }  // namespace
 
 // xu, xv, pu, pv: contiguous (H, W) int64.  Returns the launch's
@@ -123,5 +157,20 @@ extern "C" int sl_step(const int64_t* xu, const int64_t* xv, int64_t* pu,
   const int64_t blocks = (n + threads - 1) / threads;
   sl_step_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       xu, xv, pu, pv, H, W, g2, cfl_x, cfl_y, d_max, n_max);
+  return (int)cudaGetLastError();
+}
+
+// xu, xv, pu, pv: contiguous (B, H, W) int64, frames independent.
+// Returns the launch's cudaError_t.
+extern "C" int sl_step_batched(const int64_t* xu, const int64_t* xv,
+                               int64_t* pu, int64_t* pv, int B, int H, int W,
+                               double g2, double cfl_x, double cfl_y,
+                               double d_max, int n_max, void* stream) {
+  const int threads = 256;
+  const int64_t n = (int64_t)B * H * W;
+  const int64_t blocks = (n + threads - 1) / threads;
+  sl_step_batched_kernel<<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+      xu, xv, pu, pv, B, H, W, g2, cfl_x, cfl_y, d_max, n_max);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@ the tensor's device: CUDA -> kernel, CPU -> plain version).
 """
 from . import _build
 
-KERNELS = ("lorenzo", "cptest", "semilagrange")
+KERNELS = ("lorenzo", "cptest", "semilagrange", "entropy")
 
 
 def build_all() -> dict:

@@ -34,6 +34,7 @@ SOURCES = {
     # the SL stepper must round every f64 op once, as the reference's
     # numpy stepper does: no fused multiply-add contraction
     "semilagrange": ["-fmad=false"],
+    "entropy": [],
 }
 
 _LOCK = threading.Lock()

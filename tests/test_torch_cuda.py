@@ -7,7 +7,7 @@ reason.  The file imports no JAX, so it runs on the card's machine:
 
 (``--noconftest``: tests/conftest.py imports the JAX package.)
 Kernel and plain version must agree bitwise, and a compress on the card
-must write the bytes of a compress on the CPU.
+must write the bytes of a compress on the CPU, with either codec.
 """
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ import repro_torch
 from repro_torch.core import quantize
 from repro_torch.data import synthetic
 from repro_torch.kernels.cptest import kernel as k2, ref as r2
+from repro_torch.kernels.entropy import kernel as k5, ref as r5
 from repro_torch.kernels.lorenzo import kernel as k1, ref as r1
 from repro_torch.kernels.semilagrange import kernel as k3, ref as r3
 
@@ -70,10 +71,50 @@ def test_sl_kernel_equals_plain(dev, amp, cfl):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_card_blob_equals_cpu_blob(dev):
+@pytest.mark.parametrize("amp,cfl", [(50, 0.05), (50_000, 0.2)])
+def test_sl_batched_kernel_equals_per_frame_kernel_and_plain(dev, amp, cfl):
+    rng = np.random.default_rng(amp)
+    xu = torch.as_tensor(rng.integers(-amp, amp + 1, (5, 61, 83)), device=dev)
+    xv = torch.as_tensor(rng.integers(-amp, amp + 1, (5, 61, 83)), device=dev)
+    xu[2] //= 100
+    args = (0.01, cfl, cfl, 2.0, 32)
+    n0 = k3.sl_step_batched.launches
+    got = k3.sl_step_batched(xu, xv, *args)
+    torch.cuda.synchronize()
+    assert k3.sl_step_batched.launches == n0 + 1
+    want = r3.sl_step_batched(xu, xv, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for b in range(xu.shape[0]):
+        one = k3.sl_step(xu[b], xv[b], *args)
+        assert torch.equal(got[0][b], one[0])
+        assert torch.equal(got[1][b], one[1])
+
+
+@pytest.mark.parametrize("B,n,offset", [(1, 1, 0), (3, 1000, 0),
+                                        (8, 4097, 5), (2, 1 << 20, 3)])
+def test_histogram_kernel_equals_plain(dev, B, n, offset):
+    """Random, all-zero and all-255 rows, ragged n and a start that is
+    not 16-byte aligned."""
+    rng = np.random.default_rng(n)
+    flat = rng.integers(0, 256, offset + B * n).astype(np.uint8)
+    flat[offset::2] = rng.integers(0, 4, len(flat[offset::2]))
+    sym = torch.as_tensor(flat, device=dev)[offset:].view(B, n)
+    if B >= 3:
+        sym[1] = 0
+        sym[2] = 255
+    n0 = k5.symbol_histogram.launches
+    got = k5.symbol_histogram(sym)
+    torch.cuda.synchronize()
+    assert k5.symbol_histogram.launches == n0 + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, r5.symbol_histogram(sym))
+
+
+@pytest.mark.parametrize("codec", ["host", "device"])
+def test_card_blob_equals_cpu_blob(dev, codec):
     u, v = synthetic.vortex_street(T=6, H=48, W=64)
     cfg = repro_torch.CompressionConfig(eb=1e-2, dt=0.05, dx=2.0 / 63,
-                                        dy=1.0 / 47)
+                                        dy=1.0 / 47, codec=codec)
     b_dev, s_dev = repro_torch.compress(u, v, cfg, device=dev)
     b_cpu, _ = repro_torch.compress(u, v, cfg, device="cpu")
     assert b_dev == b_cpu and s_dev["sl_block_frac"] > 0

@@ -76,7 +76,7 @@ def test_default_device_needs_cuda(no_cuda, field):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(backend="numpy"), ValueError, "backend"),
     (dict(tiling=object()), NotImplementedError, "item 6"),
-    (dict(codec="device"), NotImplementedError, "item 7"),
+    (dict(codec="device", tiling=object()), NotImplementedError, "item 6"),
     (dict(codec="gzip"), ValueError, "codec"),
     (dict(fused=False), NotImplementedError, "item 4"),
     (dict(eb_policy=("tile", 2, 4, 4, 0.01, ())), NotImplementedError,

@@ -1,11 +1,13 @@
-"""Plain versions of the port's three kernels against the JAX package.
+"""Plain versions of the port's kernels K1-K4 against the JAX package.
 
 K1 (Lorenzo residual) and K2 (SoS face predicate) must equal the
 reference's Pallas kernels, run in interpret mode as
 tests/test_backend_parity.py runs them, and its numpy backend.  K3 (the
 SL stepper) must equal the reference's numpy stepper bit for bit,
-including displacements above d_max * n_max where the substeps clamp.
-All comparisons are exact.  The kernels themselves run only on the
+including displacements above d_max * n_max where the substeps clamp;
+K4 (the stepper over a stack of frames) must equal K3 frame by frame.
+K5 is held against the reference in tests/test_torch_entropy.py.  All
+comparisons are exact.  The kernels themselves run only on the
 card: tests/test_torch_cuda.py holds them against these plain versions.
 """
 import jax.numpy as jnp
@@ -121,10 +123,49 @@ def test_sl_plain_matches_numpy_stepper(amp, cfl, n_max):
     assert all(torch.equal(a, b) for a, b in zip(direct, got))
 
 
+@pytest.mark.parametrize("amp,cfl,n_max", [(500, 0.5, 8), (50_000, 0.2, 32)])
+def test_sl_batched_plain_matches_per_frame(amp, cfl, n_max):
+    """K4's plain version over a stack whose frames need different
+    substep counts (one frame at rest) equals K3's plain version and the
+    reference's numpy stepper frame by frame, and the encoder's
+    predictions go through it."""
+    rng = np.random.default_rng(amp)
+    B, H, W = 4, 29, 41
+    xu = rng.integers(-amp, amp + 1, (B, H, W)).astype(np.int64)
+    xv = rng.integers(-amp, amp + 1, (B, H, W)).astype(np.int64)
+    xu[1] //= 100
+    xv[1] //= 100
+    xu[2] = 0
+    g2f = 0.01
+    args = (g2f, cfl, 0.7 * cfl, 2.0, n_max)
+    pu, pv = sl_ops.sl_step_batched(torch.as_tensor(xu), torch.as_tensor(xv),
+                                    *args)
+    assert pu.shape == (B, H, W) and pu.dtype == torch.int64
+    for b in range(B):
+        want = r_backend._sl_predict_frame_np(xu[b], xv[b], *args)
+        one = sl_ops.sl_step(torch.as_tensor(xu[b]), torch.as_tensor(xv[b]),
+                             *args)
+        assert np.array_equal(pu[b].numpy(), want[0])
+        assert np.array_equal(pv[b].numpy(), want[1])
+        assert torch.equal(pu[b], one[0]) and torch.equal(pv[b], one[1])
+    full_u = torch.as_tensor(np.concatenate([xu, xu[:1]]))
+    full_v = torch.as_tensor(np.concatenate([xv, xv[:1]]))
+    enc = backend.sl_predictions(full_u, full_v, *args)
+    assert torch.equal(enc[0], pu) and torch.equal(enc[1], pv)
+
+
+def test_symbol_histogram_dispatch_plain():
+    rng = np.random.default_rng(1)
+    sym = rng.integers(0, 256, (3, 777)).astype(np.uint8)
+    got = backend.symbol_histogram(torch.as_tensor(sym))
+    assert np.array_equal(got.numpy(), r_backend._symbol_histogram_np(sym))
+
+
 def test_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never runs its plain version: given a CPU tensor
     it raises (the ops dispatch chooses the plain version instead)."""
     from repro_torch.kernels.cptest import kernel as k2
+    from repro_torch.kernels.entropy import kernel as k5
     from repro_torch.kernels.lorenzo import kernel as k1
     from repro_torch.kernels.semilagrange import kernel as k3
 
@@ -136,4 +177,10 @@ def test_wrappers_refuse_cpu_tensors():
                         torch.zeros((1, 3), dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         k3.sl_step(x[0], x[0], 0.1, 1.0, 1.0, 2.0, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.sl_step_batched(x, x, 0.1, 1.0, 1.0, 2.0, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.symbol_histogram(x[0].to(torch.uint8))
     assert k1.lorenzo_residual.launches == 0
+    assert k3.sl_step_batched.launches == 0
+    assert k5.symbol_histogram.launches == 0
