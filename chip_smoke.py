@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing is caught):
               nvcc per source; semilagrange.cu holds K3 and K4)
 2. kernels -- each of the five kernels against its plain PyTorch version
               on the card, bitwise, on random inputs that force its edge
-              cases; K4 also against one K3 launch per frame
+              cases: K3 (sl_decode, one cooperative launch a field) on
+              every blockmap pattern, partial blocks and clamped
+              substeps; K4 with displacements that leave its halo, also
+              against one launch of the per-frame stepper sl_step a frame
 3. parity  -- compress on the card == compress on the CPU, byte for byte,
               with the host codec and with codec="device", on a
               vortex-street field and on a field whose verify rounds
@@ -19,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught):
               SCF analogue vortex_street(T=120, H=100, W=225) and an
               archive field vortex_street(T=64, H=512, W=512), with the
               launches of every kernel counted over each run (counts set
-              to 0 just before, read just after), the pointwise bound,
+              to 0 just before, read just after: one sl_decode a
+              decompress, verify rounds + 1 a compress, no per-frame
+              sl_step), the pointwise bound,
               FC_t = FC_s = 0, the host codec's bytes and the device
               codec's decode == the host codec's decode checked, plus a
               traced run with host-clock seconds per stage and a
@@ -57,6 +62,13 @@ SIZES = {
     "k2": 1 << 20,
     "k3": (128, 192),
     "k4": (12, 128, 192),
+    # sl_decode: (shape, block, blockmap kind, amplitude); the edge cases
+    # of tests/test_torch_sl_decode.py plus the main sizes
+    "k3_decode": [((6, 37, 53), b, k, a) for b in (16, 8)
+                  for k in ("none", "all", "random", "first", "last", "runs")
+                  for a in ("rk2", "clamped")]
+    + [((120, 100, 225), 16, "random", "rk2"),
+       ((16, 512, 512), 40, "runs", "clamped")],
     # (rows, row length, byte offset of the first row)
     "k5": [(1, 1, 0), (2, 1000, 0), (5, 4097, 3), (8, 1 << 20, 0),
            (2, 1 << 24, 0), (8, 1 << 24, 5)],
@@ -74,7 +86,7 @@ KERNELS = [
      "src/repro_torch/csrc/lorenzo.cu", "src/repro/kernels/lorenzo/kernel.py:68"),
     ("face_crossed", "cptest", "face_crossed",
      "src/repro_torch/csrc/cptest.cu", "src/repro/kernels/cptest/kernel.py:102"),
-    ("sl_step", "semilagrange", "sl_step",
+    ("sl_decode", "semilagrange", "sl_decode",
      "src/repro_torch/csrc/semilagrange.cu",
      "src/repro/kernels/semilagrange/kernel.py:106"),
     ("sl_step_batched", "semilagrange", "sl_step_batched",
@@ -107,10 +119,14 @@ def modules():
 
 
 def wrappers():
-    """{name: the kernel wrapper function whose ``launches`` counts}."""
+    """{name: the kernel wrapper function whose ``launches`` counts}, the
+    kernels of KERNELS and the per-frame stepper sl_step, which the main
+    path must not launch."""
     mods = modules()
-    return {name: getattr(mods[mod][0], attr)
-            for name, mod, attr, _, _ in KERNELS}
+    fns = {name: getattr(mods[mod][0], attr)
+           for name, mod, attr, _, _ in KERNELS}
+    fns["sl_step"] = mods["semilagrange"][0].sl_step
+    return fns
 
 
 def time_ms(fn, reps: int) -> float:
@@ -209,6 +225,19 @@ def phase_kernels(dev):
         f"pairs; {int(want.sum())} crossed): bitwise")
 
     k3, r3 = mods["semilagrange"]
+    for shape, block, kind, amp in SIZES["k3_decode"]:
+        a, cfl, n_max = DECODE_AMPS[amp]
+        args = decode_inputs(kind, shape, block, a, dev) + (
+            block, 0.01, cfl, 0.7 * cfl, 2.0, n_max)
+        got = k3.sl_decode(*args)
+        assert same(got, r3.sl_decode(*args)), \
+            f"K3 sl_decode differs: {shape} block {block} {kind} {amp}"
+    say(f"K3 sl_decode == plain on {len(SIZES['k3_decode'])} cases: "
+        "(6, 37, 53) x block 16/8 x blockmap none/all/random/first/last/"
+        "runs x RK2-only/clamped substeps, (120, 100, 225) block 16 random, "
+        f"(16, 512, 512) block 40 runs (grid {k3.sl_decode.grid} CTAs, "
+        "units beyond the registers): bitwise")
+
     H, W = SIZES["k3"]
     for amp, cfl in ((50, 0.05), (5e4, 0.01), (5e4, 0.2)):
         xu = torch.as_tensor(rng.integers(-amp, amp + 1, (H, W)), device=dev)
@@ -217,12 +246,14 @@ def phase_kernels(dev):
         disp = float(max(xu.abs().max(), xv.abs().max())) * g2f * cfl
         got = k3.sl_step(xu, xv, g2f, cfl, cfl, 2.0, 32)
         want = r3.sl_step(xu, xv, g2f, cfl, cfl, 2.0, 32)
-        assert same(got, want), f"K3 differs at max displacement {disp}"
-        say(f"K3 sl_step == plain on {(H, W)}, max displacement {disp:.1f} "
-            f"cells (d_max*n_max = 64): bitwise")
+        assert same(got, want), f"sl_step differs at max displacement {disp}"
+        say(f"per-frame sl_step == plain on {(H, W)}, max displacement "
+            f"{disp:.1f} cells (d_max*n_max = 64): bitwise")
 
     B, H, W = SIZES["k4"]
-    for amp, cfl in ((50, 0.05), (5e4, 0.01), (5e4, 0.2)):
+    # 3e3 at cfl 0.1: departures of up to 3 cells beside RK2 pixels, at
+    # the edge of K4's 4-cell halo; 5e4: substeps far beyond it
+    for amp, cfl in ((50, 0.05), (3e3, 0.1), (5e4, 0.01), (5e4, 0.2)):
         xu = torch.as_tensor(rng.integers(-amp, amp + 1, (B, H, W)), device=dev)
         xv = torch.as_tensor(rng.integers(-amp, amp + 1, (B, H, W)), device=dev)
         xu[1::3] //= 100                         # frames with fewer substeps
@@ -231,8 +262,9 @@ def phase_kernels(dev):
         assert same(got, r3.sl_step_batched(xu, xv, *args)), "K4 != plain"
         for b in range(B):
             one = k3.sl_step(xu[b], xv[b], *args)
-            assert same((got[0][b], got[1][b]), one), f"K4 != K3 frame {b}"
-        say(f"K4 sl_step_batched == plain and == {B} K3 launches on "
+            assert same((got[0][b], got[1][b]), one), \
+                f"K4 != sl_step frame {b}"
+        say(f"K4 sl_step_batched == plain and == {B} sl_step launches on "
             f"{(B, H, W)}, amplitude {amp:g}, cfl {cfl}: bitwise")
 
     k5, r5 = mods["entropy"]
@@ -250,6 +282,44 @@ def phase_kernels(dev):
         assert int(got.sum()) == B * n
     say(f"K5 symbol_histogram == plain on (rows, n, offset) {SIZES['k5']} "
         "(random, small-symbol, all-0 and all-255 rows): bitwise")
+
+
+# (residual amplitude, cfl, n_max): RK2 only / substeps clamped at n_max
+DECODE_AMPS = {"rk2": (20, 0.05, 8), "clamped": (400, 0.5, 4)}
+
+
+def decode_inputs(kind, shape, block, amp, dev):
+    """(c2u, c2v, res_u, res_v, blockmap, flags) for sl_decode: seeded
+    residuals of amplitude ``amp`` and a blockmap of the named kind (none,
+    all, random 30 %, SL only in frame 1, only in the last frame, runs of
+    SL frames between runs without)."""
+    from repro_torch.core import predictors
+
+    rng = np.random.default_rng([block, amp, *shape])
+    T, H, W = shape
+    nb = (T, -(-H // block), -(-W // block))
+    res = [torch.as_tensor(rng.integers(-amp, amp + 1, shape), device=dev)
+           for _ in range(2)]
+    some = rng.random(nb[1:]) < 0.5
+    some.flat[0] = True
+    bm = np.zeros(nb, dtype=bool)
+    if kind == "all":
+        bm[:] = True
+    elif kind == "random":
+        bm = rng.random(nb) < 0.3
+    elif kind == "first":
+        bm[1] = some
+    elif kind == "last":
+        bm[-1] = some
+    elif kind == "runs":
+        bm[1:T // 3] = some
+        bm[T // 2:T // 2 + 2] = some
+    flags = bm.reshape(T, -1).any(axis=1)
+    flags[0] = False
+    c2 = [predictors.c2_block(r, block).contiguous() for r in res]
+    return (*c2, *res,
+            torch.as_tensor(bm.astype(np.uint8), device=dev),
+            torch.as_tensor(flags.astype(np.uint8), device=dev))
 
 
 # ----------------------------------------------------------------------
@@ -365,8 +435,8 @@ class StageClock:
               ("eb_derive", "repro_torch.core.ebound", "derive_vertex_eb"),
               ("quantize_predict", "repro_torch.core.pipeline",
                "_encode_field"),
-              ("decode_fields", "repro_torch.core.pipeline",
-               "_decode_fields_parallel"),
+              # the verify simulation's and decompress's SL decode
+              ("decode_fields", "repro_torch.core.backend", "sl_decode"),
               ("verify_check", "repro_torch.core.pipeline", "_verify_round"),
               ("symbolize", "repro_torch.core.encode", "field_sections"),
               # the device codec's symbolize + code build + bitpack, and
@@ -495,7 +565,13 @@ def phase_main(dev):
                     if codec == "device" or n != "symbol_histogram"]
             for name in path:
                 assert enc[name] + dec[name] > 0, f"{tag}: {name} not launched"
-            assert dec["sl_step"] > 0 and enc["sl_step_batched"] > 0
+            rounds = stats["verify_rounds"] + 1
+            assert dec["sl_decode"] == 1 and enc["sl_decode"] == rounds, \
+                f"{tag}: sl_decode launches {enc['sl_decode']} / " \
+                f"{dec['sl_decode']}, expected {rounds} / 1"
+            assert enc["sl_step"] == dec["sl_step"] == 0, \
+                f"{tag}: the per-frame stepper ran on the main path"
+            assert enc["sl_step_batched"] == rounds
             if codec == "host":
                 host_dec = (ur, vr)
                 assert enc["symbol_histogram"] == 0
@@ -600,7 +676,31 @@ def sl_ops_count(xu, xv, g2f, cx, cy, d_max, n_max):
     return float(per.sum())
 
 
-def bound_terms(name, args):
+def sl_branches(xu, xv, g2f, cx, cy, d_max, n_max) -> str:
+    """Which branch the stepper takes on these pixels: the RK2 share and
+    the substep counts of the others."""
+    u = xu.to(torch.float64) * g2f
+    v = xv.to(torch.float64) * g2f
+    d_inf = torch.maximum(u.abs() * cx, v.abs() * cy)
+    rk = d_inf <= d_max
+    n_sub = torch.clamp(torch.ceil(d_inf[~rk] / d_max), 1.0, float(n_max))
+    sub = (f"substeps mean {float(n_sub.mean()):.2f}, "
+           f"max {float(n_sub.max()):g}" if n_sub.numel() else "no substeps")
+    return f"RK2 {100 * float(rk.double().mean()):.2f} % of pixels, {sub}"
+
+
+def decode_sl_pixels(args, out):
+    """The frame t-1 values (xu, xv) of the pixels that sl_decode steps
+    through SL on these inputs, as flat tensors; out is its result."""
+    _, _, _, _, bm, flags, block = args[:7]
+    T, H, W = out[0].shape
+    mask = (bm.bool() & flags.bool()[:, None, None]) \
+        .repeat_interleave(block, dim=1) \
+        .repeat_interleave(block, dim=2)[:, :H, :W]
+    return out[0][:-1][mask[1:]], out[1][:-1][mask[1:]]
+
+
+def bound_terms(name, args, out):
     """(bytes, f64 operations) the function needs on these inputs: each
     input read once, each output written once."""
     if name == "lorenzo_residual":
@@ -615,7 +715,15 @@ def bound_terms(name, args):
         # not counted (the card's peak table has no scalar integer rate)
         sym = args[0]
         return sym.numel() + sym.shape[0] * 256 * 4, 0
-    # sl_step / sl_step_batched: 16 B in, 16 B out per pixel
+    if name == "sl_decode":
+        # per pixel 16 B read (c2 or res) and 16 B written, plus the
+        # blockmap and flags; the stepper's operations on the pixels of
+        # the SL blocks only
+        bm, flags = args[4], args[5]
+        xu, xv = decode_sl_pixels(args, out)
+        return (args[0].numel() * 32 + bm.numel() + flags.numel(),
+                sl_ops_count(xu, xv, *args[7:]))
+    # sl_step_batched: 16 B in, 16 B out per pixel
     return args[0].numel() * 32, sl_ops_count(*args)
 
 
@@ -659,7 +767,7 @@ def phase_table(main):
         # the profiler sees no device activity
         ms = dev_ms / n if n else call_ms
         kern.launches = saved
-        nbytes, ops = bound_terms(name, args)
+        nbytes, ops = bound_terms(name, args, want)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F64_FLOPS * 1e3
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
@@ -667,6 +775,14 @@ def phase_table(main):
                else "per call: the profiler saw no device time")
         lib_txt = (f", library call {library_ms:.5f} ms"
                    if library_ms is not None else "")
+        if name == "sl_decode":
+            flags = args[5]
+            xu, xv = decode_sl_pixels(args, want)
+            lib_txt += (f", {int(flags[1:].sum())} grid barriers of "
+                        f"{kern.grid} CTAs, {xu.numel()} SL pixels ("
+                        f"{sl_branches(xu, xv, *args[7:])})")
+        if name == "sl_step_batched":
+            lib_txt += f" ({sl_branches(*args)})"
         say(f"table {name}: main-path inputs {shapes}, kernel {ms:.5f} ms "
             f"({how}), {call_ms:.5f} ms per call "
             f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per "

@@ -13,14 +13,17 @@ Determinism contract:
   order of the JAX package's numpy stepper: kernel and plain version are
   bitwise equal to that stepper, so the header records
   ``sl_backend: "numpy"`` and the JAX package replays the same
-  predictions when it decodes a port container.  The per-frame (K3)
-  and batched (K4) kernels share one device function, so predicting the
-  encoder's T-1 frames in one batched call changes no integer.
+  predictions when it decodes a port container.  The decode (K3) and
+  batched (K4) kernels share one device function, so decoding a field
+  in one launch and predicting the encoder's T-1 frames in one batched
+  call change no integer.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from . import predictors
 from ..kernels.cptest import ops as _cp_ops
 from ..kernels.entropy import ops as _ent_ops
 from ..kernels.lorenzo import ops as _lz_ops
@@ -42,14 +45,29 @@ def lorenzo_residual(dfp, k, lossless, xi_unit: int, block: int):
                                     lossless.contiguous(), xi_unit, block)
 
 
-def sl_stepper(cfl_x: float, cfl_y: float, d_max: float, n_max: int):
-    """The per-frame SL prediction F(xu_prev, xv_prev, g2f) -> (pu, pv)
-    of the verify simulation and the decoder, which step frames in
-    sequence."""
-    def step(xu_prev, xv_prev, g2f):
-        return _sl_ops.sl_step(xu_prev.contiguous(), xv_prev.contiguous(),
-                               g2f, cfl_x, cfl_y, d_max, n_max)
-    return step
+def sl_decode(res_u, res_v, blockmap, block: int, g2f: float, cfl_x: float,
+              cfl_y: float, d_max: float, n_max: int):
+    """Parallel-in-time decode of the verify simulation and of
+    decompress: (T, H, W) int64 residuals and the HOST bool blockmap
+    (T, nbi, nbj) -> the base-grid integers (xu, xv).  A field with no SL
+    block past frame 0 is one prefix sum over time; any other goes to one
+    ``sl_decode`` call (one kernel launch on CUDA), with the blockmap and
+    the per-frame flags copied to the device once."""
+    bm = np.asarray(blockmap)
+    T = res_u.shape[0]
+    c2u = predictors.c2_block(res_u, block)
+    c2v = predictors.c2_block(res_v, block)
+    flags = bm.reshape(T, -1).any(axis=1)
+    flags[0] = False                           # frame 0 is spatial-only
+    if not flags.any():
+        return torch.cumsum(c2u, dim=0), torch.cumsum(c2v, dim=0)
+    dev = res_u.device
+    return _sl_ops.sl_decode(
+        c2u.contiguous(), c2v.contiguous(), res_u.contiguous(),
+        res_v.contiguous(),
+        torch.as_tensor(bm.astype(np.uint8), device=dev).contiguous(),
+        torch.as_tensor(flags.astype(np.uint8), device=dev), block, g2f,
+        cfl_x, cfl_y, d_max, n_max)
 
 
 def sl_predictions(xu, xv, g2f: float, cfl_x: float, cfl_y: float,

@@ -8,8 +8,8 @@ Every stage runs on the device of the tensors it is given (the caller's
 ``device``): on CUDA the hot ops launch their kernels through
 core/backend.py, on the CPU they run the plain versions.  Integer stages
 are exact int64, the reconstruction and pointwise checks are elementwise
-IEEE f64, the SL stepper is the f64 stepper of backend.py and the MoP
-rate model runs on the host (mop.py), so the container bytes do not
+IEEE f64, the SL decode and stepper are the f64 ones of backend.py and
+the MoP rate model runs on the host (mop.py), so the container bytes do not
 depend on the device and equal the JAX package's for the same plan with
 its numpy SL stepper.
 
@@ -142,13 +142,11 @@ def plan_from_header(header: dict) -> PipelinePlan:
 
 
 class PlanExecutor:
-    """A plan bound to a device and its SL stepper."""
+    """A plan bound to a device."""
 
     def __init__(self, plan: PipelinePlan, device: torch.device):
         self.plan = plan
         self.device = device
-        self.stepper = backend.sl_stepper(plan.cfl_x, plan.cfl_y,
-                                          plan.d_max, plan.n_max)
 
     @property
     def g2f(self) -> float:
@@ -282,55 +280,8 @@ def check_faces(shape, tabs, ufp, vfp, ur_fp, vr_fp, preds, delta):
 
 
 # ----------------------------------------------------------------------
-# decode: parallel in time, shared by verify-sim and decompress
+# decode (backend.sl_decode, shared with the verify simulation)
 # ----------------------------------------------------------------------
-
-def _decode_fields_parallel(res_u, res_v, blockmap, scale, xi_unit, block,
-                            stepper):
-    """Parallel-in-time decode.  ``blockmap`` is a HOST bool array
-    (T, nbi, nbj): runs of frames with no SL tile are one prefix sum
-    over time; only frames with SL tiles step through ``stepper``."""
-    bm = np.asarray(blockmap)
-    T, H, W = res_u.shape
-    g2f = (2.0 * xi_unit) / scale
-    c2u = predictors.c2_block(res_u, block)
-    c2v = predictors.c2_block(res_v, block)
-    any_sl = bm.reshape(T, -1).any(axis=1)
-    any_sl[0] = False                          # frame 0 is spatial-only
-    Su = torch.cumsum(c2u, dim=0)
-    Sv = torch.cumsum(c2v, dim=0)
-    if not any_sl.any():
-        return Su, Sv
-    mask_rep = np.repeat(np.repeat(bm, block, axis=1), block, axis=2)
-    mask_rep = mask_rep[:, :H, :W]
-
-    us, vs = [], []
-    prev_u = prev_v = None
-    cur = 0
-    for t in np.flatnonzero(any_sl):
-        t = int(t)
-        if t > cur:
-            if cur == 0:
-                seg_u, seg_v = Su[:t], Sv[:t]
-            else:
-                seg_u = (prev_u - Su[cur - 1])[None] + Su[cur:t]
-                seg_v = (prev_v - Sv[cur - 1])[None] + Sv[cur:t]
-            us.append(seg_u)
-            vs.append(seg_v)
-            prev_u, prev_v = seg_u[-1], seg_v[-1]
-        pu, pv = stepper(prev_u, prev_v, g2f)
-        m = torch.as_tensor(mask_rep[t], device=res_u.device)
-        xu_t = torch.where(m, res_u[t] + pu, prev_u + c2u[t])
-        xv_t = torch.where(m, res_v[t] + pv, prev_v + c2v[t])
-        us.append(xu_t[None])
-        vs.append(xv_t[None])
-        prev_u, prev_v = xu_t, xv_t
-        cur = t + 1
-    if cur < T:
-        us.append((prev_u - Su[cur - 1])[None] + Su[cur:])
-        vs.append((prev_v - Sv[cur - 1])[None] + Sv[cur:])
-    return torch.cat(us, dim=0), torch.cat(vs, dim=0)
-
 
 def decode_payload(ex: PlanExecutor, shape, sections):
     """sections -> reconstructed (u, v) float32 numpy arrays."""
@@ -342,9 +293,9 @@ def decode_payload(ex: PlanExecutor, shape, sections):
         raise encode.ContainerError(
             f"blockmap shape {list(bm.shape)} does not match the field "
             f"{list(shape)} in {p.block}-blocks")
-    xu, xv = _decode_fields_parallel(
+    xu, xv = backend.sl_decode(
         torch.as_tensor(res_u, device=dev), torch.as_tensor(res_v, device=dev),
-        bm, p.scale, p.xi_unit, p.block, ex.stepper)
+        bm, p.block, p.g2f, p.cfl_x, p.cfl_y, p.d_max, p.n_max)
     n_ll = int(ll.sum())
     u_raw = np.zeros(shape, dtype=np.float32)
     v_raw = np.zeros(shape, dtype=np.float32)
@@ -465,8 +416,8 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:
             ex, ufp_d, vfp_d, eb_vertex, lossless_extra, shape)
         if not p.verify:
             break
-        xu_d, xv_d = _decode_fields_parallel(res_u, res_v, bm, p.scale,
-                                             p.xi_unit, p.block, ex.stepper)
+        xu_d, xv_d = backend.sl_decode(res_u, res_v, bm, p.block, p.g2f,
+                                       p.cfl_x, p.cfl_y, p.d_max, p.n_max)
         new_extra, n_bad = _verify_round(
             ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d, vfp_d,
             u_d, v_d, xu_d, xv_d, lossless, lossless_extra)

@@ -1,14 +1,19 @@
 // K3 and K4: semi-Lagrangian stepper, float64.  Build with -fmad=false.
 //
-// K3 (sl_step) replaces the Pallas TPU kernel
+// K3 (sl_decode) replaces the Pallas TPU kernel
 //   src/repro/kernels/semilagrange/kernel.py::sl_predict_pallas
-// (the per-frame SL stepper of the verify simulation and decode, which
-// must step frames in sequence).  K4 (sl_step_batched) replaces
+// as the JAX decoder calls it in its frame loop
+// (src/repro/core/pipeline.py::_decode_fields_parallel): one persistent
+// launch decodes every frame of a field, for the verify simulation and
+// for decompress.  K4 (sl_step_batched) replaces
 //   src/repro/kernels/semilagrange/kernel.py::sl_predict_batched_pallas
 // (the same stepper over a (B, H, W) stack of independent frames): the
-// encoder predicts frames 1..T-1 from frames 0..T-2 in one launch.  Both
-// kernels run the one __device__ function sl_pixel under the same flags,
-// so K4's integers equal B launches of K3 bit for bit by construction.
+// encoder predicts frames 1..T-1 from frames 0..T-2 in one launch.
+// sl_step, the stepper over one frame, is kept as a per-frame launch that
+// the tests hold K4 against; it is not on the main path.  All three run
+// the one __device__ function sl_pixel on the one sampling function
+// bilinear2 under the same flags, so their integers are equal bit for bit
+// by construction.
 //
 // The stepper maps frame t-1's base-grid integers (xu, xv) to frame t's
 // integer predictions (pu, pv):
@@ -26,25 +31,46 @@
 // rounded once (-fmad=false), so its integers equal that stepper's bit
 // for bit.  That is what lets the containers it writes (header
 // sl_backend "numpy") decode in the JAX package, and the JAX package's
-// f64 containers decode here.
+// f64 containers decode here.  Each thread loops to its OWN n_sub: in the
+// reference, iterations past a pixel's own count are masked identities,
+// so no field-wide maximum is needed.
 //
-// Each thread loops to its OWN n_sub: in the reference, iterations past
-// a pixel's own count are masked identities, so no field-wide maximum is
-// needed and the result is the same.  A pixel that takes the RK2 branch
-// skips the substep loop (its result is discarded in the reference).
+// What bounds it on the H100: not bytes.  A pixel reads 8 (RK2) or
+// 8 * n_sub + 8 (substeps) scattered values of the previous frame, each
+// sample dependent on the last, and spends most of its instructions on
+// f64 (two correctly rounded divisions a substep, conversions, floors);
+// a warp runs to its lanes' largest n_sub.  Both kernels stage the tile
+// of the previous frame they step, plus a halo, in shared memory as the
+// doubles x * g2 (the product the stepper samples, rounded once, so a
+// staged sample equals a global one bit for bit).  A bilinear footprint
+// inside the staged region reads shared memory; any other (a substep
+// pixel, a departure point beyond the halo) reads global memory in the
+// same kernel.
 //
-// What bounds it on the H100: latency of dependent f64 gathers.  A pixel
-// reads its own two values and 8 (RK2) or 8 * n_sub + 8 (substeps)
-// scattered int64 values of the two planes, through L1/L2 (a plane of
-// the main path is well under 1 MB); each substep depends on the last.
-// Compulsory traffic is 16 B in and 16 B out per pixel.  One thread per
-// output pixel, no shared memory.  K3 launches one 100x225 frame at a
-// time, too few threads to fill the card; K4 gives it all B frames of
-// the encoder at once.
+// The decoder's recurrence is sequential in time: frame t's SL blocks
+// sample frame t-1 anywhere.  One cooperative launch walks all T frames;
+// a pixel outside an SL block needs only its own value of frame t-1,
+// which its thread keeps in registers, so only frames that hold an SL
+// block cost a grid-wide barrier.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+// K4's staged halo: 4 cells on each side of a tile hold every sample of
+// an RK2 pixel at d_max = 2 whose neighbours are RK2 pixels too: the
+// midpoint lies within d_max / 2 = 1 cell, the departure point within
+// d_max = 2 cells (a bilinear mean of displacements <= d_max), floor() of
+// either, after a rounding below an integer, one more, and the +1
+// footprint one more again: 2 + 1 + 1 = 4.  sl_decode stages 8 cells,
+// which also holds the first two or three substeps of a substep pixel
+// (each moves at most about d_max): its global reads go through L2,
+// about ten times the latency of a shared-memory read.
+constexpr int K4_HALO = 4;
+constexpr int DEC_HALO = 8;
 
 // numpy clip: minimum(maximum(x, lo), hi)
 __device__ __forceinline__ double clip(double x, double lo, double hi) {
@@ -52,13 +78,91 @@ __device__ __forceinline__ double clip(double x, double lo, double hi) {
   return x < hi ? x : hi;
 }
 
-__device__ __forceinline__ double sample(const int64_t* __restrict__ f,
-                                         int i, int j, int W, double g2) {
-  return (double)f[(int64_t)i * W + j] * g2;
+// The two ways a kernel reads the previous frame from global memory.
+// K4 and sl_step read an input that no thread writes: the read-only path
+// through L1.  sl_decode reads frames that other SMs wrote in the same
+// launch: ld.global.cg through L2, never L1 (not coherent across SMs) or
+// the non-coherent path; volatile with a memory clobber, so the compiler
+// keeps it after the grid barrier that orders it (the header's __ldcg
+// promises neither).
+struct LoadReadOnly {
+  __device__ __forceinline__ static int64_t ld(const int64_t* p) {
+    return (int64_t)__ldg(reinterpret_cast<const long long*>(p));
+  }
+};
+
+struct LoadL2 {
+  __device__ __forceinline__ static int64_t ld(const int64_t* p) {
+    long long r;
+    asm volatile("ld.global.cg.s64 %0, [%1];" : "=l"(r) : "l"(p) : "memory");
+    return (int64_t)r;
+  }
+};
+
+// (double)f[k] * g2, the value the stepper samples
+template <class L>
+__device__ __forceinline__ double load_g2(const int64_t* f, int64_t k,
+                                          double g2) {
+  return (double)L::ld(f + k) * g2;
 }
 
-__device__ double bilinear(const int64_t* __restrict__ f, double g2,
-                           double fi, double fj, int H, int W) {
+// Frame t-1 as the doubles x * g2 over the rows [i0, i0 + h) and columns
+// [j0, j0 + w) of the plane, row stride w, in shared memory.  h = 0
+// stages nothing.
+struct Stage {
+  const double* u;
+  const double* v;
+  int i0, j0, h, w;
+};
+
+// Stage the rows [i0, i1) x columns [j0, j1) of the (H, W) planes xu, xv,
+// clipped to the plane, into su, sv.  Every thread of the CTA calls it;
+// the caller synchronizes before the reads.  Each thread issues up to
+// STAGE_BATCH loads a plane before it converts any, so a tile costs one
+// memory latency, not one a value: both kernels stage at most
+// 4 x 256 values a plane.
+constexpr int STAGE_BATCH = 4;
+
+template <class L>
+__device__ Stage stage(const int64_t* xu, const int64_t* xv, int H, int W,
+                       double g2, int i0, int i1, int j0, int j1, double* su,
+                       double* sv) {
+  i0 = max(i0, 0);
+  j0 = max(j0, 0);
+  const Stage s{su, sv, i0, j0, min(i1, H) - i0, min(j1, W) - j0};
+  const int n = s.h * s.w;
+  for (int k0 = threadIdx.x; k0 < n; k0 += STAGE_BATCH * blockDim.x) {
+    int64_t a[STAGE_BATCH], b[STAGE_BATCH];
+#pragma unroll
+    for (int m = 0; m < STAGE_BATCH; ++m) {
+      const int k = k0 + m * blockDim.x;
+      if (k < n) {
+        const int64_t g = (int64_t)(i0 + k / s.w) * W + (j0 + k % s.w);
+        a[m] = L::ld(xu + g);
+        b[m] = L::ld(xv + g);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < STAGE_BATCH; ++m) {
+      const int k = k0 + m * blockDim.x;
+      if (k < n) {
+        su[k] = (double)a[m] * g2;
+        sv[k] = (double)b[m] * g2;
+      }
+    }
+  }
+  return s;
+}
+
+struct UV {
+  double u, v;
+};
+
+// Bilinear sample of both planes at (fi, fj), each summed left to right
+// as (1-a)(1-b) f00 + (1-a) b f01 + a (1-b) f10 + a b f11.
+template <class L>
+__device__ UV bilinear2(const int64_t* xu, const int64_t* xv, const Stage& s,
+                        double g2, double fi, double fj, int H, int W) {
   const double i0 = clip(floor(fi), 0.0, H - 1.0);
   const double j0 = clip(floor(fj), 0.0, W - 1.0);
   const double a = fi - i0;
@@ -67,29 +171,55 @@ __device__ double bilinear(const int64_t* __restrict__ f, double g2,
   const int jj0 = (int)j0;
   const int ii1 = min(ii0 + 1, H - 1);
   const int jj1 = min(jj0 + 1, W - 1);
-  const double f00 = sample(f, ii0, jj0, W, g2);
-  const double f01 = sample(f, ii0, jj1, W, g2);
-  const double f10 = sample(f, ii1, jj0, W, g2);
-  const double f11 = sample(f, ii1, jj1, W, g2);
-  double r = (1.0 - a) * (1.0 - b) * f00;
-  r = r + (1.0 - a) * b * f01;
-  r = r + a * (1.0 - b) * f10;
-  r = r + a * b * f11;
+  double u00, u01, u10, u11, v00, v01, v10, v11;
+  if (ii0 >= s.i0 && ii1 < s.i0 + s.h && jj0 >= s.j0 && jj1 < s.j0 + s.w) {
+    const int r0 = (ii0 - s.i0) * s.w, r1 = (ii1 - s.i0) * s.w;
+    const int c0 = jj0 - s.j0, c1 = jj1 - s.j0;
+    u00 = s.u[r0 + c0];
+    u01 = s.u[r0 + c1];
+    u10 = s.u[r1 + c0];
+    u11 = s.u[r1 + c1];
+    v00 = s.v[r0 + c0];
+    v01 = s.v[r0 + c1];
+    v10 = s.v[r1 + c0];
+    v11 = s.v[r1 + c1];
+  } else {
+    const int64_t r0 = (int64_t)ii0 * W, r1 = (int64_t)ii1 * W;
+    u00 = load_g2<L>(xu, r0 + jj0, g2);
+    u01 = load_g2<L>(xu, r0 + jj1, g2);
+    u10 = load_g2<L>(xu, r1 + jj0, g2);
+    u11 = load_g2<L>(xu, r1 + jj1, g2);
+    v00 = load_g2<L>(xv, r0 + jj0, g2);
+    v01 = load_g2<L>(xv, r0 + jj1, g2);
+    v10 = load_g2<L>(xv, r1 + jj0, g2);
+    v11 = load_g2<L>(xv, r1 + jj1, g2);
+  }
+  const double w00 = (1.0 - a) * (1.0 - b);
+  const double w01 = (1.0 - a) * b;
+  const double w10 = a * (1.0 - b);
+  const double w11 = a * b;
+  UV r;
+  r.u = w00 * u00;
+  r.u = r.u + w01 * u01;
+  r.u = r.u + w10 * u10;
+  r.u = r.u + w11 * u11;
+  r.v = w00 * v00;
+  r.v = r.v + w01 * v01;
+  r.v = r.v + w10 * v10;
+  r.v = r.v + w11 * v11;
   return r;
 }
 
-// pixel idx of the (H, W) planes xu, xv -> its predictions pu[idx], pv[idx]
-__device__ __forceinline__ void sl_pixel(const int64_t* __restrict__ xu,
-                                         const int64_t* __restrict__ xv,
-                                         int64_t* __restrict__ pu,
-                                         int64_t* __restrict__ pv,
-                                         int64_t idx, int H, int W, double g2,
-                                         double cx, double cy, double d_max,
-                                         int n_max) {
-  const double ii = (double)(idx / W);
-  const double jj = (double)(idx % W);
-  const double u0 = (double)xu[idx] * g2;
-  const double v0 = (double)xv[idx] * g2;
+// Pixel (i, j) of the (H, W) planes xu, xv of frame t-1, whose own
+// values are u0 = xu[i, j] * g2 and v0 = xv[i, j] * g2 -> its
+// predictions (pu, pv) for frame t.
+template <class L>
+__device__ void sl_pixel(const int64_t* xu, const int64_t* xv,
+                         const Stage& s, int i, int j, double u0, double v0,
+                         int H, int W, double g2, double cx, double cy,
+                         double d_max, int n_max, int64_t& pu, int64_t& pv) {
+  const double ii = (double)i;
+  const double jj = (double)j;
   const double du = fabs(u0) * cx;
   const double dv = fabs(v0) * cy;
   const double d_inf = du > dv ? du : dv;
@@ -98,51 +228,239 @@ __device__ __forceinline__ void sl_pixel(const int64_t* __restrict__ xu,
   if (d_inf <= d_max) {
     const double i_h = clip(ii - 0.5 * v0 * cy, 0.0, H - 1.0);
     const double j_h = clip(jj - 0.5 * u0 * cx, 0.0, W - 1.0);
-    const double u_h = bilinear(xu, g2, i_h, j_h, H, W);
-    const double v_h = bilinear(xv, g2, i_h, j_h, H, W);
-    i_s = ii - v_h * cy;
-    j_s = jj - u_h * cx;
+    const UV h = bilinear2<L>(xu, xv, s, g2, i_h, j_h, H, W);
+    i_s = ii - h.v * cy;
+    j_s = jj - h.u * cx;
   } else {
     const double n_sub = clip(ceil(d_inf / d_max), 1.0, (double)n_max);
     double pi = ii, pj = jj;
-    for (int s = 0; s < n_sub; ++s) {
-      const double us = bilinear(xu, g2, pi, pj, H, W);
-      const double vs = bilinear(xv, g2, pi, pj, H, W);
-      pi = clip(pi - vs * cy / n_sub, 0.0, H - 1.0);
-      pj = clip(pj - us * cx / n_sub, 0.0, W - 1.0);
+    for (int k = 0; k < n_sub; ++k) {
+      const UV q = bilinear2<L>(xu, xv, s, g2, pi, pj, H, W);
+      pi = clip(pi - q.v * cy / n_sub, 0.0, H - 1.0);
+      pj = clip(pj - q.u * cx / n_sub, 0.0, W - 1.0);
     }
     i_s = pi;
     j_s = pj;
   }
   i_s = clip(i_s, 0.0, H - 1.0);
   j_s = clip(j_s, 0.0, W - 1.0);
-  pu[idx] = (int64_t)rint(bilinear(xu, g2, i_s, j_s, H, W) / g2);
-  pv[idx] = (int64_t)rint(bilinear(xv, g2, i_s, j_s, H, W) / g2);
+  const UV f = bilinear2<L>(xu, xv, s, g2, i_s, j_s, H, W);
+  pu = (int64_t)rint(f.u / g2);
+  pv = (int64_t)rint(f.v / g2);
 }
 
-__global__ void sl_step_kernel(const int64_t* __restrict__ xu,
-                               const int64_t* __restrict__ xv,
-                               int64_t* __restrict__ pu,
-                               int64_t* __restrict__ pv, int H, int W,
+// ---------------------------------------------------------------------
+// sl_step: one frame, one thread per pixel, nothing staged
+// ---------------------------------------------------------------------
+
+__global__ void sl_step_kernel(const int64_t* xu, const int64_t* xv,
+                               int64_t* pu, int64_t* pv, int H, int W,
                                double g2, double cx, double cy, double d_max,
                                int n_max) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)H * W) return;
-  sl_pixel(xu, xv, pu, pv, idx, H, W, g2, cx, cy, d_max, n_max);
+  const Stage none{nullptr, nullptr, 0, 0, 0, 0};
+  sl_pixel<LoadReadOnly>(xu, xv, none, (int)(idx / W), (int)(idx % W),
+                         load_g2<LoadReadOnly>(xu, idx, g2),
+                         load_g2<LoadReadOnly>(xv, idx, g2), H, W, g2, cx,
+                         cy, d_max, n_max, pu[idx], pv[idx]);
 }
 
-__global__ void sl_step_batched_kernel(const int64_t* __restrict__ xu,
-                                       const int64_t* __restrict__ xv,
-                                       int64_t* __restrict__ pu,
-                                       int64_t* __restrict__ pv, int B, int H,
-                                       int W, double g2, double cx, double cy,
-                                       double d_max, int n_max) {
-  const int64_t hw = (int64_t)H * W;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * hw) return;
-  const int64_t off = (idx / hw) * hw;
-  sl_pixel(xu + off, xv + off, pu + off, pv + off, idx - off, H, W, g2, cx,
-           cy, d_max, n_max);
+// ---------------------------------------------------------------------
+// K4 sl_step_batched: one CTA per (frame, 32x16 tile), tile + halo staged
+// ---------------------------------------------------------------------
+//
+// 32 rows x 16 columns, two pixels a thread, 40 x 24 staged values a
+// plane: 15 KB of shared memory a CTA.  tools/sl_tile_sweep.py times the
+// other tile shapes and halos (their times are in PERF.md).
+
+constexpr int K4_TH = 32;
+constexpr int K4_TW = 16;
+constexpr int K4_THREADS = 256;
+
+__global__ void __launch_bounds__(K4_THREADS)
+    sl_step_batched_kernel(const int64_t* xu, const int64_t* xv, int64_t* pu,
+                           int64_t* pv, int H, int W, int tiles_j,
+                           int n_tiles, double g2, double cx, double cy,
+                           double d_max, int n_max) {
+  __shared__ double su[(K4_TH + 2 * K4_HALO) * (K4_TW + 2 * K4_HALO)];
+  __shared__ double sv[(K4_TH + 2 * K4_HALO) * (K4_TW + 2 * K4_HALO)];
+  const int b = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x % n_tiles;
+  const int ti0 = (tile / tiles_j) * K4_TH;
+  const int tj0 = (tile % tiles_j) * K4_TW;
+  const int64_t off = (int64_t)b * H * W;
+  xu += off;
+  xv += off;
+  const Stage s =
+      stage<LoadReadOnly>(xu, xv, H, W, g2, ti0 - K4_HALO,
+                          ti0 + K4_TH + K4_HALO, tj0 - K4_HALO,
+                          tj0 + K4_TW + K4_HALO, su, sv);
+  __syncthreads();
+  for (int p = threadIdx.x; p < K4_TH * K4_TW; p += K4_THREADS) {
+    const int i = ti0 + p / K4_TW;
+    const int j = tj0 + p % K4_TW;
+    if (i >= H || j >= W) continue;
+    const int k = (i - s.i0) * s.w + (j - s.j0);
+    const int64_t g = off + (int64_t)i * W + j;
+    sl_pixel<LoadReadOnly>(xu, xv, s, i, j, s.u[k], s.v[k], H, W, g2, cx, cy,
+                           d_max, n_max, pu[g], pv[g]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// K3 sl_decode: one cooperative launch decodes all T frames
+// ---------------------------------------------------------------------
+//
+// The plane is cut into units: the MoP blocks (block x block pixels, the
+// border ones partial), each cut further into at most 16x16 pieces when
+// block > 16.  A unit has at most 256 pixels, one a thread.  CTA c owns
+// the units c, c + grid, c + 2 grid, ... for all frames, so a pixel
+// always belongs to the same thread, which keeps its x of the last frame
+// in registers (for its first DEC_REG_UNITS units; later ones re-read
+// their own store of frame t-1) and loads its residual or c2 of frame t
+// before the frame's barrier.
+//
+// Frame 0: x_0 = c2[0].  Frame t >= 1, pixel in an SL block of frame t
+// (flags[t] && blockmap[t, bi, bj]): x_t = res[t] + SL(x_{t-1}); any
+// other pixel: x_t = x_{t-1} + c2[t].  Before a frame whose flag is set
+// every CTA meets at grid.sync(): SL samples frame t-1 anywhere.  Every
+// CTA reads the same flags, so the barriers are uniform; no thread
+// leaves the frame loop early.
+
+constexpr int DEC_UNIT = 16;
+// 32: 2 x 32^2 x 8 B = 16 KB of shared memory a CTA
+constexpr int DEC_SPAN = DEC_UNIT + 2 * DEC_HALO;
+constexpr int DEC_THREADS = DEC_UNIT * DEC_UNIT;
+constexpr int DEC_REG_UNITS = 4;
+
+__device__ __forceinline__ int64_t reg_get(const int64_t (&r)[DEC_REG_UNITS],
+                                           int k) {
+  int64_t x = r[0];
+#pragma unroll
+  for (int m = 1; m < DEC_REG_UNITS; ++m) x = m == k ? r[m] : x;
+  return x;
+}
+
+__device__ __forceinline__ void reg_put(int64_t (&r)[DEC_REG_UNITS], int k,
+                                        int64_t x) {
+#pragma unroll
+  for (int m = 0; m < DEC_REG_UNITS; ++m) r[m] = m == k ? x : r[m];
+}
+
+// Unit q in frame t and this thread's pixel in it; all but i, j, active
+// and g are CTA-uniform
+struct UnitPixel {
+  int r0, r1, c0, c1;  // the unit's rows [r0, r1), columns [c0, c1)
+  int i, j;            // the thread's pixel
+  bool some;           // the unit lies (partly) inside the plane
+  bool active;         // the thread has a pixel in it
+  bool sl;             // the unit is in an SL block of a flagged frame
+  int64_t g;           // the pixel's offset in (T, H, W)
+};
+
+__device__ __forceinline__ UnitPixel unit_pixel(int q, int t, bool sl_frame,
+                                                const uint8_t* bm, int H,
+                                                int W, int block, int nbi,
+                                                int nbj, int sub) {
+  UnitPixel u;
+  const int bq = q / (sub * sub);
+  const int uq = q % (sub * sub);
+  const int bi = bq / nbj, bj = bq % nbj;
+  u.r0 = bi * block + (uq / sub) * DEC_UNIT;
+  u.c0 = bj * block + (uq % sub) * DEC_UNIT;
+  u.r1 = min(min(u.r0 + DEC_UNIT, (bi + 1) * block), H);
+  u.c1 = min(min(u.c0 + DEC_UNIT, (bj + 1) * block), W);
+  u.some = u.r0 < u.r1 && u.c0 < u.c1;
+  const int uw = max(u.c1 - u.c0, 1);
+  u.active = u.some && (int)threadIdx.x < (u.r1 - u.r0) * uw;
+  u.i = u.r0 + (int)threadIdx.x / uw;
+  u.j = u.c0 + (int)threadIdx.x % uw;
+  u.g = ((int64_t)t * H + u.i) * W + u.j;
+  u.sl = sl_frame && bm[((int64_t)t * nbi + bi) * nbj + bj] != 0;
+  return u;
+}
+
+__global__ void __launch_bounds__(DEC_THREADS)
+    sl_decode_kernel(const int64_t* c2u, const int64_t* c2v,
+                     const int64_t* ru, const int64_t* rv,
+                     const uint8_t* bm, const uint8_t* flags, int64_t* xu,
+                     int64_t* xv, int T, int H, int W, int block, double g2,
+                     double cx, double cy, double d_max, int n_max) {
+  __shared__ double su[DEC_SPAN * DEC_SPAN];
+  __shared__ double sv[DEC_SPAN * DEC_SPAN];
+  cg::grid_group grid = cg::this_grid();
+  const int nbi = (H + block - 1) / block;
+  const int nbj = (W + block - 1) / block;
+  const int sub = (block + DEC_UNIT - 1) / DEC_UNIT;  // unit rows a block
+  const int n_units = nbi * nbj * sub * sub;
+  const int64_t HW = (int64_t)H * W;
+  int64_t reg_u[DEC_REG_UNITS] = {0}, reg_v[DEC_REG_UNITS] = {0};
+  int64_t pre_u[DEC_REG_UNITS] = {0}, pre_v[DEC_REG_UNITS] = {0};
+
+  for (int t = 0; t < T; ++t) {
+    const bool sl_frame = t > 0 && flags[t] != 0;
+    // this frame's residual (SL pixel) or c2 (any other) of the units in
+    // registers, loaded before the barrier so that it waits with it
+#pragma unroll
+    for (int k = 0; k < DEC_REG_UNITS; ++k) {
+      const int q = blockIdx.x + k * gridDim.x;
+      if (q >= n_units) break;
+      const UnitPixel u =
+          unit_pixel(q, t, sl_frame, bm, H, W, block, nbi, nbj, sub);
+      if (u.active) {
+        pre_u[k] = u.sl ? ru[u.g] : c2u[u.g];
+        pre_v[k] = u.sl ? rv[u.g] : c2v[u.g];
+      }
+    }
+    if (sl_frame) grid.sync();
+    const int64_t* pu_prev = xu + (int64_t)max(t - 1, 0) * HW;  // frame t-1
+    const int64_t* pv_prev = xv + (int64_t)max(t - 1, 0) * HW;
+    int k = 0;
+    for (int q = blockIdx.x; q < n_units; q += gridDim.x, ++k) {
+      const UnitPixel u =
+          unit_pixel(q, t, sl_frame, bm, H, W, block, nbi, nbj, sub);
+      if (!u.some) continue;  // past the plane's edge, CTA-uniform
+      const bool in_regs = k < DEC_REG_UNITS;
+      int64_t x_u = 0, x_v = 0;
+      if (u.active) {
+        x_u = in_regs ? reg_get(pre_u, k) : u.sl ? ru[u.g] : c2u[u.g];
+        x_v = in_regs ? reg_get(pre_v, k) : u.sl ? rv[u.g] : c2v[u.g];
+      }
+      if (u.sl) {
+        __syncthreads();  // the last unit's staged tile is read
+        const Stage s =
+            stage<LoadL2>(pu_prev, pv_prev, H, W, g2, u.r0 - DEC_HALO,
+                          u.r1 + DEC_HALO, u.c0 - DEC_HALO, u.c1 + DEC_HALO,
+                          su, sv);
+        __syncthreads();
+        if (u.active) {
+          const int ks = (u.i - s.i0) * s.w + (u.j - s.j0);
+          int64_t pu, pv;
+          sl_pixel<LoadL2>(pu_prev, pv_prev, s, u.i, u.j, s.u[ks], s.v[ks],
+                           H, W, g2, cx, cy, d_max, n_max, pu, pv);
+          x_u += pu;
+          x_v += pv;
+        }
+      } else if (u.active && t > 0) {
+        if (in_regs) {
+          x_u += reg_get(reg_u, k);
+          x_v += reg_get(reg_v, k);
+        } else {  // this thread's own store of frame t-1
+          x_u += LoadL2::ld(xu + u.g - HW);
+          x_v += LoadL2::ld(xv + u.g - HW);
+        }
+      }
+      if (u.active) {
+        xu[u.g] = x_u;
+        xv[u.g] = x_v;
+        if (in_regs) {
+          reg_put(reg_u, k, x_u);
+          reg_put(reg_v, k, x_v);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -166,11 +484,45 @@ extern "C" int sl_step_batched(const int64_t* xu, const int64_t* xv,
                                int64_t* pu, int64_t* pv, int B, int H, int W,
                                double g2, double cfl_x, double cfl_y,
                                double d_max, int n_max, void* stream) {
-  const int threads = 256;
-  const int64_t n = (int64_t)B * H * W;
-  const int64_t blocks = (n + threads - 1) / threads;
-  sl_step_batched_kernel<<<(unsigned)blocks, threads, 0,
+  const int tiles_j = (W + K4_TW - 1) / K4_TW;
+  const int n_tiles = ((H + K4_TH - 1) / K4_TH) * tiles_j;
+  const int64_t blocks = (int64_t)B * n_tiles;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  sl_step_batched_kernel<<<(unsigned)blocks, K4_THREADS, 0,
                            (cudaStream_t)stream>>>(
-      xu, xv, pu, pv, B, H, W, g2, cfl_x, cfl_y, d_max, n_max);
+      xu, xv, pu, pv, H, W, tiles_j, n_tiles, g2, cfl_x, cfl_y, d_max, n_max);
   return (int)cudaGetLastError();
+}
+
+// c2u, c2v, ru, rv, xu, xv: contiguous (T, H, W) int64; bm: contiguous
+// (T, ceil(H / block), ceil(W / block)) uint8; flags: (T,) uint8.  One
+// cooperative launch of as many CTAs as fit on the card at once, at most
+// one a unit; *grid_out gets that count.  Returns the launch's
+// cudaError_t (a launch the card refuses is not retried).
+extern "C" int sl_decode(const int64_t* c2u, const int64_t* c2v,
+                         const int64_t* ru, const int64_t* rv,
+                         const uint8_t* bm, const uint8_t* flags, int64_t* xu,
+                         int64_t* xv, int T, int H, int W, int block,
+                         double g2, double cfl_x, double cfl_y, double d_max,
+                         int n_max, int* grid_out, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sl_decode_kernel, DEC_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int sub = (block + DEC_UNIT - 1) / DEC_UNIT;
+  const int64_t n_units = (int64_t)((H + block - 1) / block) *
+                          ((W + block - 1) / block) * sub * sub;
+  const int64_t fit = (int64_t)per_sm * sms;
+  const int64_t grid = fit < n_units ? fit : n_units;
+  *grid_out = (int)grid;
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&c2u, &c2v, &ru, &rv, &bm, &flags, &xu, &xv, &T,
+                  &H, &W, &block, &g2, &cfl_x, &cfl_y, &d_max, &n_max};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)sl_decode_kernel, dim3((unsigned)grid), dim3(DEC_THREADS),
+      args, 0, (cudaStream_t)stream);
 }

@@ -1,9 +1,11 @@
 """ctypes wrappers of K3 and K4 (csrc/semilagrange.cu): the f64
-semi-Lagrangian stepper, per frame (K3) and over a stack of independent
-frames (K4).
+semi-Lagrangian decode of a whole field in one cooperative launch (K3,
+``sl_decode``) and the stepper over a stack of independent frames (K4,
+``sl_step_batched``), plus the per-frame stepper ``sl_step`` that the
+tests hold K4 against.
 
-Replace ``repro/kernels/semilagrange/kernel.py::sl_predict_pallas`` and
-``::sl_predict_batched_pallas``.
+Replace ``repro/kernels/semilagrange/kernel.py::sl_predict_pallas`` (as
+the JAX decoder's frame loop calls it) and ``::sl_predict_batched_pallas``.
 """
 from __future__ import annotations
 
@@ -78,3 +80,72 @@ def sl_step_batched(xu_prev: torch.Tensor, xv_prev: torch.Tensor,
 
 
 sl_step_batched.launches = 0
+
+
+def _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, block: int):
+    planes = (c2u, c2v, res_u, res_v)
+    for t in planes:
+        if t.dtype != torch.int64:
+            raise TypeError(f"expected int64 planes, got {t.dtype}")
+    for t, what in ((blockmap, "blockmap"), (flags, "flags")):
+        if t.dtype != torch.uint8:
+            raise TypeError(f"expected a uint8 {what}, got {t.dtype}")
+    shape = tuple(c2u.shape)
+    if len(shape) != 3 or any(tuple(t.shape) != shape for t in planes):
+        raise ValueError(
+            f"bad plane shapes {[tuple(t.shape) for t in planes]}")
+    T, H, W = shape
+    if block < 1 or H * W >= 2 ** 31:
+        raise ValueError(f"bad block {block} or plane {H}x{W}")
+    nb = (T, -(-H // block), -(-W // block))
+    if tuple(blockmap.shape) != nb or tuple(flags.shape) != (T,):
+        raise ValueError(f"blockmap {tuple(blockmap.shape)} / flags "
+                         f"{tuple(flags.shape)} do not fit {shape} in "
+                         f"{block}-blocks: expected {nb} / {(T,)}")
+    if not c2u.is_cuda:
+        raise ValueError("sl_decode kernel needs CUDA tensors")
+    for t in planes + (blockmap, flags):
+        if t.device != c2u.device:
+            raise ValueError("inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
+              res_v: torch.Tensor, blockmap: torch.Tensor, flags: torch.Tensor,
+              block: int, g2f: float, cfl_x: float, cfl_y: float,
+              d_max: float, n_max: int):
+    """Decode a field's base-grid integers in one cooperative launch.
+
+    c2u, c2v: (T, H, W) int64 tile-local cumsums of the residuals;
+    res_u, res_v: (T, H, W) int64 residuals; blockmap (T, ceil(H/block),
+    ceil(W/block)) uint8, 1 for an SL block; flags (T,) uint8, 1 where
+    frame t steps its SL blocks (frame 0 never does).  All contiguous on
+    one CUDA device.  Returns (xu, xv) (T, H, W) int64, equal to
+    ``ref.sl_decode``.  ``sl_decode.grid`` is the last launch's CTA
+    count."""
+    _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, int(block))
+    T, H, W = c2u.shape
+    xu = torch.empty_like(c2u)
+    xv = torch.empty_like(c2v)
+    if xu.numel() == 0:
+        return xu, xv
+    f = _build.load("semilagrange").sl_decode
+    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_double] * 4 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    grid = ctypes.c_int(0)
+    err = f(c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(),
+            res_v.data_ptr(), blockmap.data_ptr(), flags.data_ptr(),
+            xu.data_ptr(), xv.data_ptr(), T, H, W, int(block), float(g2f),
+            float(cfl_x), float(cfl_y), float(d_max), int(n_max),
+            ctypes.byref(grid), _build.stream_ptr(c2u.device))
+    _build.check(err, f"sl_decode ({grid.value} CTAs)")
+    sl_decode.launches += 1
+    sl_decode.grid = grid.value
+    return xu, xv
+
+
+sl_decode.launches = 0
+sl_decode.grid = 0

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import quantize
+from repro_torch.core import predictors, quantize
 from repro_torch.data import synthetic
 from repro_torch.kernels.cptest import kernel as k2, ref as r2
 from repro_torch.kernels.entropy import kernel as k5, ref as r5
@@ -71,7 +71,10 @@ def test_sl_kernel_equals_plain(dev, amp, cfl):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("amp,cfl", [(50, 0.05), (50_000, 0.2)])
+# 3000: departures of up to 3 cells beside RK2 pixels, at the halo's
+# edge; 50_000: 100-cell substeps far beyond it; 61x83 leaves partial
+# 32x32 tiles at the borders
+@pytest.mark.parametrize("amp,cfl", [(50, 0.05), (3000, 0.1), (50_000, 0.2)])
 def test_sl_batched_kernel_equals_per_frame_kernel_and_plain(dev, amp, cfl):
     rng = np.random.default_rng(amp)
     xu = torch.as_tensor(rng.integers(-amp, amp + 1, (5, 61, 83)), device=dev)
@@ -88,6 +91,61 @@ def test_sl_batched_kernel_equals_per_frame_kernel_and_plain(dev, amp, cfl):
         one = k3.sl_step(xu[b], xv[b], *args)
         assert torch.equal(got[0][b], one[0])
         assert torch.equal(got[1][b], one[1])
+
+
+def _decode_inputs(kind, shape, block, amp, dev):
+    """(c2u, c2v, res_u, res_v, blockmap, flags) for sl_decode: seeded
+    residuals of amplitude ``amp`` and a blockmap of the named kind."""
+    rng = np.random.default_rng([block, amp, *shape])
+    T, H, W = shape
+    nb = (T, -(-H // block), -(-W // block))
+    res = [torch.as_tensor(rng.integers(-amp, amp + 1, shape), device=dev)
+           for _ in range(2)]
+    some = rng.random(nb[1:]) < 0.5
+    some.flat[0] = True
+    bm = np.zeros(nb, dtype=bool)
+    if kind == "all":
+        bm[:] = True
+    elif kind == "random":
+        bm = rng.random(nb) < 0.3
+    elif kind == "first":
+        bm[1] = some
+    elif kind == "last":
+        bm[-1] = some
+    elif kind == "runs":
+        bm[1:T // 3] = some
+        bm[T // 2:T // 2 + 2] = some
+    flags = bm.reshape(T, -1).any(axis=1)
+    flags[0] = False
+    c2 = [predictors.c2_block(r, block).contiguous() for r in res]
+    return (*c2, *res,
+            torch.as_tensor(bm.astype(np.uint8), device=dev),
+            torch.as_tensor(flags.astype(np.uint8), device=dev))
+
+
+# (residual amplitude, cfl, n_max): RK2 only / substeps clamped at n_max
+_DECODE_AMPS = {"rk2": (20, 0.05, 8), "clamped": (400, 0.5, 4)}
+
+
+@pytest.mark.parametrize("shape,block,kind,amp", [
+    *[((6, 37, 53), b, k, a) for b in (16, 8)
+      for k in ("none", "all", "random", "first", "last", "runs")
+      for a in ("rk2", "clamped")],
+    ((120, 100, 225), 16, "random", "rk2"),
+    ((120, 100, 225), 16, "all", "clamped"),
+    ((16, 512, 512), 16, "runs", "rk2"),
+    ((16, 512, 512), 40, "random", "clamped"),
+])
+def test_sl_decode_kernel_equals_plain(dev, shape, block, kind, amp):
+    a, cfl, n_max = _DECODE_AMPS[amp]
+    args = _decode_inputs(kind, shape, block, a, dev) + (
+        block, 0.01, cfl, 0.7 * cfl, 2.0, n_max)
+    n0 = k3.sl_decode.launches
+    got = k3.sl_decode(*args)
+    torch.cuda.synchronize()
+    assert k3.sl_decode.launches == n0 + 1 and k3.sl_decode.grid >= 1
+    want = r3.sl_decode(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("B,n,offset", [(1, 1, 0), (3, 1000, 0),
