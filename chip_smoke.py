@@ -10,8 +10,14 @@ Phases (any failure exits non-zero; nothing is caught):
               nvcc per source; semilagrange.cu holds K3 and K4)
 2. kernels -- each of the five kernels against its plain PyTorch version
               on the card, bitwise, on random inputs that force its edge
-              cases: K3 (sl_decode, one cooperative launch a field) on
-              every blockmap pattern, partial blocks and clamped
+              cases: K1 (both components in one launch, with and without
+              the quantized fields) at blocks 16 and 13, on rounding
+              half-way points, |dfp| beyond 2^32 up to the int64 edge
+              and g >= 2^32 (its 64-bit path), frame runs that do not
+              divide T; K5 (one persistent launch) on all-zero, all-255
+              and only-symbols->=4 rows, ragged and unaligned rows; K3
+              (sl_decode, one cooperative launch a field) on every
+              blockmap pattern, partial blocks and clamped
               substeps; K4 with displacements that leave its halo, also
               against one launch of the per-frame stepper sl_step a frame
 3. parity  -- compress on the card == compress on the CPU, byte for byte,
@@ -23,8 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
               archive field vortex_street(T=64, H=512, W=512), with the
               launches of every kernel counted over each run (counts set
               to 0 just before, read just after: one sl_decode a
-              decompress, verify rounds + 1 a compress, no per-frame
-              sl_step), the pointwise bound,
+              decompress, verify rounds + 1 a compress, the same for K1
+              and K4, no per-frame sl_step, no dual_quantize outside
+              K1), the pointwise bound,
               FC_t = FC_s = 0, the host codec's bytes and the device
               codec's decode == the host codec's decode checked, plus a
               traced run with host-clock seconds per stage and a
@@ -71,7 +78,7 @@ SIZES = {
        ((16, 512, 512), 40, "runs", "clamped")],
     # (rows, row length, byte offset of the first row)
     "k5": [(1, 1, 0), (2, 1000, 0), (5, 4097, 3), (8, 1 << 20, 0),
-           (2, 1 << 24, 0), (8, 1 << 24, 5)],
+           (2, 1 << 24, 0), (8, 1 << 24, 5), (8, (1 << 24) + 5, 0)],
     "parity": (8, 128, 192),
     "main": [(120, 100, 225), (64, 512, 512)],
 }
@@ -183,24 +190,33 @@ def phase_build():
 # ----------------------------------------------------------------------
 
 def phase_kernels(dev):
-    from repro_torch.core import quantize
-
     mods = modules()
     rng = np.random.default_rng(0)
     k1, r1 = mods["lorenzo"]
     T, H, W = SIZES["k1"]
-    for xi_unit in (1, 3, 1024):
-        tau = 4 * xi_unit
-        dfp = torch.as_tensor(rng.integers(-(2 ** 29), 2 ** 29, (T, H, W)),
-                              device=dev)
-        eb = torch.as_tensor(rng.integers(0, tau + 1, (T, H, W)), device=dev)
-        k, ll = quantize.quantize_eb(eb, xi_unit, 3)
-        for block in (16, 13):
-            got = k1.lorenzo_residual(dfp, k, ll, xi_unit, block)
-            want = r1.lorenzo_residual(dfp, k, ll, xi_unit, block)
-            assert same(got, want), f"K1 differs xi={xi_unit} block={block}"
-    say(f"K1 lorenzo_residual == plain on {(T, H, W)}, xi_unit 1/3/1024, "
-        "block 16/13: bitwise")
+    cases = [(xi, block, 2 ** 29, None) for xi in (1, 3, 1024, 2 ** 27)
+             for block in (16, 13)]
+    # the 64-bit path: |dfp| beyond 2^32 up to the int64 edge, g >= 2^32;
+    # frame runs of 1 and 3 (not dividing T = 8) and a block of 40
+    cases += [(3, 16, 2 ** 62, 3), (2 ** 31, 13, 2 ** 40, 1),
+              (7, 40, 2 ** 33, None)]
+    for xi_unit, block, amp, run in cases:
+        ufp, vfp, k, ll = lorenzo_inputs((T, H, W), xi_unit, amp, rng, dev)
+        if amp > 2 ** 32:
+            ufp[0, 0, :4] = torch.tensor(
+                [2 ** 63 - 1, -(2 ** 63) + 1, 2 ** 62, -(2 ** 63)], device=dev)
+        want = r1.lorenzo_residual(ufp, vfp, k, ll, xi_unit, block, True)
+        for want_x in (False, True):
+            n0 = k1.lorenzo_residual.launches
+            got = k1.lorenzo_residual(ufp, vfp, k, ll, xi_unit, block,
+                                      want_x, run)
+            torch.cuda.synchronize()
+            assert k1.lorenzo_residual.launches == n0 + 1
+            assert same(got, want[:len(got)]), \
+                f"K1 differs xi={xi_unit} block={block} amp={amp} run={run}"
+    say(f"K1 lorenzo_residual (u and v in one launch) == plain on "
+        f"{(T, H, W)}, with and without X, (xi_unit, block, |dfp| <, run) "
+        f"{cases}: bitwise")
 
     k2, r2 = mods["cptest"]
     n = SIZES["k2"]
@@ -277,11 +293,33 @@ def phase_kernels(dev):
         if B >= 3:
             sym[1] = 0
             sym[2] = 255
+        if B >= 4:
+            sym[3] = torch.randint(4, 256, (n,), dtype=torch.uint8,
+                                   device=dev)
         got = k5.symbol_histogram(sym)
         assert same(got, r5.symbol_histogram(sym)), f"K5 differs {(B, n)}"
         assert int(got.sum()) == B * n
     say(f"K5 symbol_histogram == plain on (rows, n, offset) {SIZES['k5']} "
-        "(random, small-symbol, all-0 and all-255 rows): bitwise")
+        "(random, small-symbol, all-0, all-255 and only->=4 rows; the "
+        "workspace reused across them): bitwise")
+
+
+def lorenzo_inputs(shape, xi_unit, amp, rng, dev):
+    """(ufp, vfp, k, lossless) for K1: n_levels 3 with lossless vertices,
+    |dfp| < amp, a quarter of the values on a rounding half-way point."""
+    from repro_torch.core import quantize
+
+    eb = torch.as_tensor(rng.integers(0, 8 * xi_unit, shape), device=dev)
+    k, ll = quantize.quantize_eb(eb, xi_unit, 3)
+    kk = torch.where(ll, 0, k.clamp(min=0)).to(torch.int64)
+    half = torch.full_like(kk, xi_unit) << kk
+    comps = []
+    for _ in range(2):
+        d = torch.as_tensor(rng.integers(-amp, amp, shape), device=dev)
+        m = torch.as_tensor(rng.integers(0, 1000, shape), device=dev)
+        on = torch.as_tensor(rng.random(shape) < 0.25, device=dev)
+        comps.append(torch.where(on, (2 * m + 1) * half, d))
+    return (*comps, k, ll)
 
 
 # (residual amplitude, cfl, n_max): RK2 only / substeps clamped at n_max
@@ -518,6 +556,28 @@ def kernel_rows(rows):
     return out
 
 
+class CallCount:
+    """Counts the calls of one module function for a run (``calls``)."""
+
+    def __init__(self, module: str, attr: str):
+        self.module, self.attr, self.calls = module, attr, 0
+
+    def __enter__(self):
+        import importlib
+
+        self._mod = importlib.import_module(self.module)
+        self._orig = orig = getattr(self._mod, self.attr)
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return orig(*args, **kw)
+        setattr(self._mod, self.attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._mod, self.attr, self._orig)
+
+
 def reset_counts(fns):
     for fn in fns.values():
         fn.launches = 0
@@ -572,6 +632,13 @@ def phase_main(dev):
             assert enc["sl_step"] == dec["sl_step"] == 0, \
                 f"{tag}: the per-frame stepper ran on the main path"
             assert enc["sl_step_batched"] == rounds
+            assert enc["lorenzo_residual"] == rounds \
+                and dec["lorenzo_residual"] == 0, \
+                f"{tag}: K1 launches {enc['lorenzo_residual']}, expected " \
+                f"{rounds} (one for u and v a verify round)"
+            n_dq = enc.pop("dual_quantize")
+            assert n_dq == 0, \
+                f"{tag}: dual_quantize ran {n_dq} times beside K1 (MoP path)"
             if codec == "host":
                 host_dec = (ur, vr)
                 assert enc["symbol_histogram"] == 0
@@ -601,10 +668,13 @@ def run_main(dev, tag, u, v, cfg, fns):
     Returns the first run's blob, stats, decode, counts and inputs."""
     import repro_torch as rt
 
-    with Recorder() as rec:
+    with Recorder() as rec, CallCount("repro_torch.core.quantize",
+                                      "dual_quantize") as dq:
         reset_counts(fns)
+        dq.calls = 0
         blob, stats = rt.compress(u, v, cfg, device=dev)
         enc_counts = read_counts(fns)
+        enc_counts["dual_quantize"] = dq.calls
         reset_counts(fns)
         ur, vr = rt.decompress(blob, device=dev)
         dec_counts = read_counts(fns)
@@ -704,8 +774,10 @@ def bound_terms(name, args, out):
     """(bytes, f64 operations) the function needs on these inputs: each
     input read once, each output written once."""
     if name == "lorenzo_residual":
-        dfp = args[0]
-        return dfp.numel() * (8 + 4 + 1 + 8), 0
+        # ufp, vfp, k, lossless read; res_u, res_v (and xu, xv with
+        # want_x) written
+        ufp, want_x = args[0], args[6]
+        return ufp.numel() * (16 + 4 + 1 + 16 + (16 if want_x else 0)), 0
     if name == "face_crossed":
         u_flat, _, verts = args
         n_used = int(torch.unique(verts).numel())

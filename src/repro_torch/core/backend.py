@@ -35,14 +35,18 @@ SL_BACKEND = "numpy"
 SL_DECODABLE = ("numpy", "xla")
 
 
-def lorenzo_residual(dfp, k, lossless, xi_unit: int, block: int):
-    """Fused eb-quantize + dual-quantize + 3D-Lorenzo residual.
+def lorenzo_residual(ufp, vfp, k, lossless, xi_unit: int, block: int,
+                     want_x: bool = False):
+    """Fused dual-quantize + 3D-Lorenzo residual of both components (one
+    K1 launch on CUDA).
 
-    dfp (T, H, W) int64; k int32 (-1 lossless); lossless bool.  Returns
-    int64 residuals (T, H, W)."""
-    return _lz_ops.lorenzo_residual(dfp.contiguous(),
+    ufp, vfp (T, H, W) int64; k int32 (-1 lossless); lossless bool.
+    Returns int64 (res_u, res_v), and with ``want_x`` also the quantized
+    fields (xu, xv) that ``quantize.dual_quantize`` gives."""
+    return _lz_ops.lorenzo_residual(ufp.contiguous(), vfp.contiguous(),
                                     k.to(torch.int32).contiguous(),
-                                    lossless.contiguous(), xi_unit, block)
+                                    lossless.contiguous(), xi_unit, block,
+                                    want_x)
 
 
 def sl_decode(res_u, res_v, blockmap, block: int, g2f: float, cfl_x: float,

@@ -168,14 +168,12 @@ def _reconstruct(xu, xv, scale, xi_unit, lossless, u_raw, v_raw):
             torch.where(lossless, v_raw, v_rec))
 
 
-def _quantize_core(ufp, vfp, eb_vertex, lossless_extra, xi_unit, n_levels):
-    """eb -> (X_u, X_v, k, lossless)."""
+def _levels(eb_vertex, lossless_extra, xi_unit, n_levels):
+    """eb -> (k, lossless), with the forced vertices lossless."""
     k, lossless = quantize.quantize_eb(eb_vertex, xi_unit, n_levels)
     lossless = lossless | lossless_extra
     k = torch.where(lossless_extra, torch.full_like(k, -1), k)
-    xu = quantize.dual_quantize(ufp, k, lossless, xi_unit)
-    xv = quantize.dual_quantize(vfp, k, lossless, xi_unit)
-    return xu, xv, k, lossless
+    return k, lossless
 
 
 def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
@@ -342,25 +340,27 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
     p = ex.plan
     T, H, W = shape
     nb = (T, -(-H // p.block), -(-W // p.block))
+    k, lossless = _levels(eb_vertex, lossless_extra, p.xi_unit, p.n_levels)
     if p.predictor == "lorenzo":
-        k, lossless = quantize.quantize_eb(eb_vertex, p.xi_unit, p.n_levels)
-        lossless = lossless | lossless_extra
-        k = torch.where(lossless_extra, torch.full_like(k, -1), k)
-        res_u = backend.lorenzo_residual(ufp, k, lossless, p.xi_unit, p.block)
-        res_v = backend.lorenzo_residual(vfp, k, lossless, p.xi_unit, p.block)
+        res_u, res_v = backend.lorenzo_residual(ufp, vfp, k, lossless,
+                                                p.xi_unit, p.block)
         return res_u, res_v, np.zeros(nb, dtype=bool), lossless
-    xu, xv, k, lossless = _quantize_core(ufp, vfp, eb_vertex, lossless_extra,
-                                         p.xi_unit, p.n_levels)
-    pu, pv = backend.sl_predictions(xu, xv, ex.g2f, p.cfl_x, p.cfl_y,
-                                    p.d_max, p.n_max)
     if p.predictor == "sl":
+        xu = quantize.dual_quantize(ufp, k, lossless, p.xi_unit)
+        xv = quantize.dual_quantize(vfp, k, lossless, p.xi_unit)
+        pu, pv = backend.sl_predictions(xu, xv, ex.g2f, p.cfl_x, p.cfl_y,
+                                        p.d_max, p.n_max)
         res_u = torch.cat([predictors.d2_block(xu[:1], p.block), xu[1:] - pu])
         res_v = torch.cat([predictors.d2_block(xv[:1], p.block), xv[1:] - pv])
         bm = np.ones(nb, dtype=bool)
         bm[0] = False
         return res_u, res_v, bm, lossless
-    res3_u = backend.lorenzo_residual(ufp, k, lossless, p.xi_unit, p.block)
-    res3_v = backend.lorenzo_residual(vfp, k, lossless, p.xi_unit, p.block)
+    # MoP: one K1 launch gives both Lorenzo residuals and the quantized
+    # fields the SL predictions start from
+    res3_u, res3_v, xu, xv = backend.lorenzo_residual(
+        ufp, vfp, k, lossless, p.xi_unit, p.block, want_x=True)
+    pu, pv = backend.sl_predictions(xu, xv, ex.g2f, p.cfl_x, p.cfl_y,
+                                    p.d_max, p.n_max)
     zero = torch.zeros_like(xu[:1])
     ressl_u = torch.cat([zero, xu[1:] - pu])
     ressl_v = torch.cat([zero, xv[1:] - pv])

@@ -1,112 +1,238 @@
-// K1: fused dual-quantization + block-local 3D Lorenzo residual (int64).
+// K1: fused dual-quantization + block-local 3D Lorenzo residual (int64)
+// of both velocity components in one streaming launch.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/lorenzo/kernel.py::dualquant_lorenzo_residual_pallas
-// and computes, bit for bit, backend._lorenzo_residual_np of the JAX
-// package:
-//   x      = sign(d) * ((|d| + q/2) / q) << k,   q = g << k,  g = 2 xi_unit
-//   x      = k = 0 rounding where the vertex is lossless
+// and computes, bit for bit and per component, quantize.dual_quantize
+// followed by predictors.lorenzo_encode (the JAX package's
+// backend._lorenzo_residual_np):
+//   x      = sign(d) * (((|d| + q/2) >> kk) / g) << kk,   q = g << kk,
+//            g = 2 xi_unit, kk = 0 where the vertex is lossless, else
+//            max(k, 0)   (== ((|d| + q/2) / q) << kk: nested floors)
 //   d2(x)  = x - x[i-1] - x[j-1] + x[i-1, j-1]    (block-local context)
 //   res_t  = d2(x_t) - d2(x_{t-1}),   res_0 = d2(x_0)
+// and, when asked, writes x of both components beside the residuals (the
+// MoP path feeds it to the SL predictions instead of quantizing again).
 //
-// What bounds it on the H100: bytes.  Per element it reads dfp (8 B),
-// k (4 B) and the lossless flag (1 B) and writes one int64 (8 B); the
-// integer work is a few dozen operations.  The TPU kernel was int32 and
-// had to be demoted to XLA at xi_unit < 4; here everything is int64, so
-// no demotion exists.
+// What bounds it on the H100: bytes.  Per element it reads ufp, vfp
+// (16 B), k (4 B) and the lossless flag (1 B) and writes two residuals
+// (16 B) and, with x, two more int64 (16 B).
 //
-// Design: one CTA per (Lorenzo tile, frame t).  The Lorenzo context is
-// block-local, so a CTA needs no halo: it quantizes its tile of frames t
-// and t-1 into shared memory (2 * block^2 int64), synchronizes, and
-// writes d2(t) - d2(t-1) once per element.  Frame t-1's tile is
-// re-quantized by the CTA of frame t (twice the loads of one pass, all
-// coalesced rows of the tile), which keeps CTAs independent.
+// Design:
+// * Stream over time.  One CTA owns a 16 x 64 spatial tile over a run of
+//   consecutive frames.  It quantizes each frame of its tile once into
+//   shared memory (double-buffered, so one barrier a frame), and each
+//   thread keeps d2 of its four elements of frame t-1 in registers.  Only
+//   the first frame of a run is quantized a second time, by the CTA of
+//   the next run (1/run of the reads).  The wrapper picks the run so the
+//   grid still fills the card.
+// * Any block.  The tile is not tied to the Lorenzo block: where a tile's
+//   top row or left column is not a block edge, the CTA also quantizes
+//   the row above / the column left of its tile (a one-element halo).  At
+//   block 16 every tile edge is a block edge and no halo is loaded.
+// * Divide by a launch constant.  The only division is by g, constant
+//   over the launch: a 32-bit dividend (every real field: |dfp| < 2^29)
+//   takes the Granlund-Montgomery multiply-high with parameters the host
+//   computes once (kernels/lorenzo/kernel.py::divisor_params), any other
+//   takes an exact 64-bit floor division, element by element.  The
+//   arithmetic wraps as the plain version's int64 torch ops do, so the
+//   result equals it for every int64 dfp.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ int64_t sgn(int64_t x) { return (x > 0) - (x < 0); }
+constexpr int kTH = 16;                 // tile rows
+constexpr int kTW = 64;                 // tile columns
+constexpr int kThreads = 256;
+constexpr int kRowStep = kThreads / kTW;  // rows one pass of the CTA covers
+constexpr int kEPT = kTH / kRowStep;      // elements per thread per frame
+constexpr int kSW = kTW + 1;              // shared row stride (col 0: halo)
+constexpr int kPlane = (kTH + 1) * kSW;   // row 0: halo
+constexpr int kHalo = kTW + 1 + kTH;      // halo elements (corner, top, left)
 
-__device__ __forceinline__ int64_t dual_quant(int64_t d, int32_t k, uint8_t ll,
-                                              int64_t g) {
-  const int kk = ll ? 0 : (k > 0 ? k : 0);
-  const int64_t q = g << kk;
-  const int64_t a = d < 0 ? -d : d;
-  const int64_t mag = (a + (q >> 1)) / q;
-  return sgn(d) * (mag << kk);
+struct Divisor {
+  int64_t g;      // 2 * xi_unit
+  int64_t xi;     // xi_unit (q >> 1 == xi << kk)
+  uint32_t m;     // multiply-high constant of g (fast != 0)
+  int sh1, sh2;   // its shifts
+  int fast;       // g < 2^32: the 32-bit path exists
+};
+
+__device__ __forceinline__ int64_t floor_div(int64_t n, int64_t g) {
+  int64_t q = n / g;
+  if (n < 0 && q * g != n) --q;
+  return q;
 }
 
-__device__ __forceinline__ int64_t d2_at(const int64_t* x, int li, int lj,
-                                         int block) {
-  int64_t v = x[li * block + lj];
-  if (li > 0) v -= x[(li - 1) * block + lj];
-  if (lj > 0) v -= x[li * block + lj - 1];
-  if (li > 0 && lj > 0) v += x[(li - 1) * block + lj - 1];
+__device__ __forceinline__ int64_t dual_quant(int64_t d, int32_t k, uint8_t ll,
+                                              const Divisor& dv) {
+  const int kk = ll ? 0 : (k > 0 ? k : 0);
+  // |d| + q/2 with the int64 wrap of the plain version (|INT64_MIN| wraps)
+  const uint64_t a = d < 0 ? 0ull - (uint64_t)d : (uint64_t)d;
+  const uint64_t n = a + ((uint64_t)dv.xi << kk);
+  const uint64_t nk = n >> kk;
+  uint64_t mag;
+  if (dv.fast && (int64_t)n >= 0 && (nk >> 32) == 0) {
+    const uint32_t n32 = (uint32_t)nk;
+    const uint32_t t1 = __umulhi(dv.m, n32);
+    mag = (t1 + ((n32 - t1) >> dv.sh1)) >> dv.sh2;
+  } else {
+    // floor((n >> kk) / g) == floor(n / q), n as the plain version's int64
+    mag = (uint64_t)floor_div((int64_t)n >> kk, dv.g);
+  }
+  const uint64_t x = mag << kk;
+  return d > 0 ? (int64_t)x : (d < 0 ? (int64_t)(0ull - x) : 0);
+}
+
+__device__ __forceinline__ int64_t d2_at(const int64_t* s, int li, int lj,
+                                         unsigned msk) {
+  // s: one component's staged tile, element (li, lj) at (li+1, lj+1)
+  const int c = (li + 1) * kSW + lj + 1;
+  int64_t v = s[c];
+  if (msk & 1u) v -= s[c - kSW];
+  if (msk & 2u) v -= s[c - 1];
+  if (msk == 3u) v += s[c - kSW - 1];
   return v;
 }
 
-__global__ void lorenzo_residual_kernel(const int64_t* __restrict__ dfp,
-                                        const int32_t* __restrict__ k,
-                                        const uint8_t* __restrict__ ll,
-                                        int64_t* __restrict__ out, int H,
-                                        int W, int64_t g, int block) {
-  extern __shared__ int64_t smem[];
-  int64_t* cur = smem;
-  int64_t* prv = smem + block * block;
-  const int nbi = (H + block - 1) / block;
-  const int nbj = (W + block - 1) / block;
-  const int t = blockIdx.x / (nbi * nbj);
-  const int tile = blockIdx.x % (nbi * nbj);
-  const int bi = tile / nbj;
-  const int bj = tile % nbj;
-  const int i0 = bi * block;
-  const int j0 = bj * block;
-  const int bh = min(block, H - i0);
-  const int bw = min(block, W - j0);
+__global__ void __launch_bounds__(kThreads)
+lorenzo_residual_kernel(const int64_t* __restrict__ ufp,
+                        const int64_t* __restrict__ vfp,
+                        const int32_t* __restrict__ k,
+                        const uint8_t* __restrict__ ll,
+                        int64_t* __restrict__ ru, int64_t* __restrict__ rv,
+                        int64_t* __restrict__ xu, int64_t* __restrict__ xv,
+                        int T, int H, int W, int block, int run, int ntj,
+                        int ntiles, Divisor dv) {
+  __shared__ int64_t sx[2][2][kPlane];  // [frame parity][component][tile]
+
+  const int tile = blockIdx.x % ntiles;
+  const int t0 = (blockIdx.x / ntiles) * run;
+  const int t1 = min(T, t0 + run);
+  const int i0 = (tile / ntj) * kTH;
+  const int j0 = (tile % ntj) * kTW;
   const int64_t HW = (int64_t)H * W;
 
-  for (int li = threadIdx.y; li < bh; li += blockDim.y) {
-    for (int lj = threadIdx.x; lj < bw; lj += blockDim.x) {
-      const int64_t c = t * HW + (int64_t)(i0 + li) * W + (j0 + lj);
-      cur[li * block + lj] = dual_quant(dfp[c], k[c], ll[c], g);
-      if (t > 0) {
-        const int64_t p = c - HW;
-        prv[li * block + lj] = dual_quant(dfp[p], k[p], ll[p], g);
+  // the thread's elements: column lj, rows r0, r0 + 4, ...
+  const int lj = threadIdx.x % kTW;
+  const int r0 = threadIdx.x / kTW;
+  const int j = j0 + lj;
+  int64_t off[kEPT];
+  unsigned msk[kEPT];          // bit 0: up neighbour, bit 1: left, 4: in range
+#pragma unroll
+  for (int e = 0; e < kEPT; ++e) {
+    const int i = i0 + r0 + e * kRowStep;
+    off[e] = (int64_t)i * W + j;
+    msk[e] = ((i % block) != 0 ? 1u : 0u) | ((j % block) != 0 ? 2u : 0u) |
+             (i < H && j < W ? 4u : 0u);
+  }
+  // the halo element of this thread, if the tile needs it
+  const bool top = (i0 % block) != 0;   // i0 > 0 then
+  const bool left = (j0 % block) != 0;
+  int64_t hoff = -1;
+  int hs = 0;                  // its place in the staged tile
+  {
+    const int h = threadIdx.x;
+    if (h == 0) {
+      if (top && left) { hoff = (int64_t)(i0 - 1) * W + j0 - 1; hs = 0; }
+    } else if (h <= kTW) {
+      if (top && j0 - 1 + h < W) {
+        hoff = (int64_t)(i0 - 1) * W + j0 - 1 + h;
+        hs = h;
+      }
+    } else if (h < kHalo) {
+      const int li = h - kTW - 1;
+      if (left && i0 + li < H) {
+        hoff = (int64_t)(i0 + li) * W + j0 - 1;
+        hs = (li + 1) * kSW;
       }
     }
   }
-  __syncthreads();
-  for (int li = threadIdx.y; li < bh; li += blockDim.y) {
-    for (int lj = threadIdx.x; lj < bw; lj += blockDim.x) {
-      const int64_t c = t * HW + (int64_t)(i0 + li) * W + (j0 + lj);
-      int64_t r = d2_at(cur, li, lj, block);
-      if (t > 0) r -= d2_at(prv, li, lj, block);
-      out[c] = r;
+
+  int64_t pu[kEPT], pv[kEPT];  // d2 of frame t-1
+#pragma unroll
+  for (int e = 0; e < kEPT; ++e) pu[e] = pv[e] = 0;
+
+  for (int t = t0 > 0 ? t0 - 1 : 0; t < t1; ++t) {
+    const bool out = t >= t0;  // frame t0-1 only primes pu / pv
+    const int64_t base = (int64_t)t * HW;
+    int64_t* su = sx[t & 1][0];
+    int64_t* sv = sx[t & 1][1];
+    int64_t du[kEPT], dw[kEPT];
+    int32_t kv[kEPT];
+    uint8_t lv[kEPT];
+#pragma unroll
+    for (int e = 0; e < kEPT; ++e) {
+      if (msk[e] & 4u) {
+        const int64_t c = base + off[e];
+        du[e] = __ldg(ufp + c);
+        dw[e] = __ldg(vfp + c);
+        kv[e] = __ldg(k + c);
+        lv[e] = __ldg(ll + c);
+      }
     }
+    if (hoff >= 0) {
+      const int64_t c = base + hoff;
+      const int32_t kh = __ldg(k + c);
+      const uint8_t lh = __ldg(ll + c);
+      su[hs] = dual_quant(__ldg(ufp + c), kh, lh, dv);
+      sv[hs] = dual_quant(__ldg(vfp + c), kh, lh, dv);
+    }
+#pragma unroll
+    for (int e = 0; e < kEPT; ++e) {
+      if (msk[e] & 4u) {
+        const int s = (r0 + e * kRowStep + 1) * kSW + lj + 1;
+        const int64_t x_u = dual_quant(du[e], kv[e], lv[e], dv);
+        const int64_t x_v = dual_quant(dw[e], kv[e], lv[e], dv);
+        su[s] = x_u;
+        sv[s] = x_v;
+        if (xu != nullptr && out) {
+          xu[base + off[e]] = x_u;
+          xv[base + off[e]] = x_v;
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kEPT; ++e) {
+      if (msk[e] & 4u) {
+        const int li = r0 + e * kRowStep;
+        const unsigned m = msk[e] & 3u;
+        const int64_t d_u = d2_at(su, li, lj, m);
+        const int64_t d_v = d2_at(sv, li, lj, m);
+        if (out) {
+          ru[base + off[e]] = d_u - pu[e];
+          rv[base + off[e]] = d_v - pv[e];
+        }
+        pu[e] = d_u;
+        pv[e] = d_v;
+      }
+    }
+    // no second barrier: frame t+1 stages into the other buffer, and
+    // frame t+2 (this buffer again) stages only after frame t+1's barrier
   }
 }
 
 }  // namespace
 
-// dfp, k, ll, out: contiguous (T, H, W); returns the cudaError_t of the
-// launch (0 on success).  One CTA per (frame, tile): T * tiles < 2^31.
-extern "C" int lorenzo_residual(const int64_t* dfp, const int32_t* k,
-                                const uint8_t* ll, int64_t* out, int T, int H,
-                                int W, int64_t xi_unit, int block,
-                                void* stream) {
-  const int nbi = (H + block - 1) / block;
-  const int nbj = (W + block - 1) / block;
-  const size_t smem = 2 * (size_t)block * block * sizeof(int64_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lorenzo_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((unsigned)((int64_t)nbi * nbj * T));
-  dim3 threads(16, 16);
-  lorenzo_residual_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      dfp, k, ll, out, H, W, 2 * xi_unit, block);
+// ufp, vfp, res_u, res_v (and xu, xv unless null): contiguous (T, H, W)
+// int64; k int32, ll uint8 of the same shape.  One CTA per (run of `run`
+// frames, 16 x 64 tile): ceil(T / run) * tiles < 2^31.  (m, sh1, sh2,
+// fast) divide by g = 2 xi_unit (kernels/lorenzo/kernel.py::
+// divisor_params).  Returns the launch's cudaError_t (0 on success).
+extern "C" int lorenzo_residual_pair(
+    const int64_t* ufp, const int64_t* vfp, const int32_t* k,
+    const uint8_t* ll, int64_t* ru, int64_t* rv, int64_t* xu, int64_t* xv,
+    int T, int H, int W, int block, int run, int64_t xi_unit, uint32_t m,
+    int sh1, int sh2, int fast, void* stream) {
+  const int nti = (H + kTH - 1) / kTH;
+  const int ntj = (W + kTW - 1) / kTW;
+  const int ntiles = nti * ntj;
+  const int nruns = (T + run - 1) / run;
+  const Divisor dv = {2 * xi_unit, xi_unit, m, sh1, sh2, fast};
+  const dim3 grid((unsigned)((int64_t)ntiles * nruns));
+  lorenzo_residual_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      ufp, vfp, k, ll, ru, rv, xu, xv, T, H, W, block, run, ntj, ntiles, dv);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """ctypes wrapper of K1 (csrc/lorenzo.cu): fused dual-quantization +
-block-local 3D Lorenzo residual on the CUDA device.
+block-local 3D Lorenzo residual of both velocity components in one
+launch on the CUDA device, optionally writing the quantized fields too.
 
 Replaces ``repro/kernels/lorenzo/kernel.py::dualquant_lorenzo_residual_pallas``.
 """
@@ -11,46 +12,92 @@ import torch
 
 from .. import _build
 
-_SMEM_MAX = 232448          # bytes of shared memory one block may use
+TILE = (16, 64)              # rows, columns of one CTA's tile (lorenzo.cu)
+CTAS_PER_SM = 12             # grid the run length aims at
+
+
+def divisor_params(g: int):
+    """(m, sh1, sh2, fast) with which the kernel divides a 32-bit n by the
+    launch constant g >= 1: with t = (m * n) >> 32,
+    n // g == (t + ((n - t) >> sh1)) >> sh2 for every 0 <= n < 2^32
+    (Granlund and Montgomery, "Division by invariant integers using
+    multiplication", 1994, figure 4.1).  fast is 0 where g >= 2^32: the
+    kernel then divides every element in 64 bits."""
+    g = int(g)
+    if g < 1:
+        raise ValueError(f"divisor {g} < 1")
+    if g >= 2 ** 32:
+        return 0, 0, 0, 0
+    ell = (g - 1).bit_length()              # ceil(log2 g)
+    m = (2 ** 32 * (2 ** ell - g)) // g + 1
+    return m, min(ell, 1), max(ell - 1, 0), 1
+
+
+def run_length(T: int, H: int, W: int, device) -> int:
+    """Frames per CTA: the longest run (fewest re-quantized first frames)
+    that still gives about CTAS_PER_SM CTAs per SM."""
+    tiles = -(-H // TILE[0]) * -(-W // TILE[1])
+    target = CTAS_PER_SM * _sms(device)
+    return max(1, min(T, (T * tiles) // target))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fn():
-    f = _build.load("lorenzo").lorenzo_residual
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    f = _build.load("lorenzo").lorenzo_residual_pair
+    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_int64, ctypes.c_uint32] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
-def lorenzo_residual(dfp: torch.Tensor, k: torch.Tensor,
-                     lossless: torch.Tensor, xi_unit: int,
-                     block: int) -> torch.Tensor:
-    """dfp (T, H, W) int64, k int32 (-1 where lossless), lossless bool,
-    all contiguous on one CUDA device.  Returns int64 residual (T, H, W)."""
-    if not dfp.is_cuda:
+def lorenzo_residual(ufp: torch.Tensor, vfp: torch.Tensor, k: torch.Tensor,
+                     lossless: torch.Tensor, xi_unit: int, block: int,
+                     want_x: bool = False, run: int | None = None):
+    """ufp, vfp (T, H, W) int64, k int32 (-1 where lossless), lossless
+    bool, all contiguous on one CUDA device.  Returns int64 (res_u,
+    res_v), and (res_u, res_v, xu, xv) with ``want_x``.  ``run`` (frames
+    per CTA) defaults to ``run_length``; it changes no output bit."""
+    if not ufp.is_cuda:
         raise ValueError("lorenzo_residual kernel needs CUDA tensors")
-    if dfp.dtype != torch.int64 or k.dtype != torch.int32 \
-            or lossless.dtype != torch.bool:
-        raise TypeError(f"expected int64/int32/bool, got {dfp.dtype}/"
-                        f"{k.dtype}/{lossless.dtype}")
-    if dfp.ndim != 3 or k.shape != dfp.shape or lossless.shape != dfp.shape:
-        raise ValueError(f"shape mismatch: {tuple(dfp.shape)} "
-                         f"{tuple(k.shape)} {tuple(lossless.shape)}")
-    if k.device != dfp.device or lossless.device != dfp.device:
+    if ufp.dtype != torch.int64 or vfp.dtype != torch.int64 \
+            or k.dtype != torch.int32 or lossless.dtype != torch.bool:
+        raise TypeError(f"expected int64/int64/int32/bool, got {ufp.dtype}/"
+                        f"{vfp.dtype}/{k.dtype}/{lossless.dtype}")
+    if ufp.ndim != 3 or any(t.shape != ufp.shape
+                            for t in (vfp, k, lossless)):
+        raise ValueError(f"shape mismatch: {tuple(ufp.shape)} "
+                         f"{tuple(vfp.shape)} {tuple(k.shape)} "
+                         f"{tuple(lossless.shape)}")
+    if any(t.device != ufp.device for t in (vfp, k, lossless)):
         raise ValueError("inputs on different devices")
-    if not (dfp.is_contiguous() and k.is_contiguous()
-            and lossless.is_contiguous()):
+    if not all(t.is_contiguous() for t in (ufp, vfp, k, lossless)):
         raise ValueError("inputs must be contiguous")
-    T, H, W = dfp.shape
-    block = int(block)
-    n_ctas = T * -(-H // max(block, 1)) * -(-W // max(block, 1))
-    if block < 1 or 2 * block * block * 8 > _SMEM_MAX or n_ctas >= 2 ** 31:
-        raise ValueError(f"unsupported block={block} for shape "
-                         f"{tuple(dfp.shape)}")
-    out = torch.empty_like(dfp)
-    err = _fn()(dfp.data_ptr(), k.data_ptr(), lossless.data_ptr(),
-                out.data_ptr(), T, H, W, int(xi_unit), block,
-                _build.stream_ptr(dfp.device))
+    T, H, W = ufp.shape
+    block, xi_unit = int(block), int(xi_unit)
+    if block < 1 or not 1 <= xi_unit < 2 ** 62 or max(T, H, W) >= 2 ** 31:
+        raise ValueError(f"unsupported block={block} / xi_unit={xi_unit} "
+                         f"for shape {tuple(ufp.shape)}")
+    res_u = torch.empty_like(ufp)
+    res_v = torch.empty_like(vfp)
+    xu = torch.empty_like(ufp) if want_x else None
+    xv = torch.empty_like(vfp) if want_x else None
+    out = (res_u, res_v, xu, xv) if want_x else (res_u, res_v)
+    if ufp.numel() == 0:
+        return out
+    run = run_length(T, H, W, ufp.device) if run is None else int(run)
+    tiles = -(-H // TILE[0]) * -(-W // TILE[1])
+    if run < 1 or tiles * -(-T // run) >= 2 ** 31:
+        raise ValueError(f"run {run} gives no grid for {tuple(ufp.shape)}")
+    err = _fn()(ufp.data_ptr(), vfp.data_ptr(), k.data_ptr(),
+                lossless.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
+                xu.data_ptr() if want_x else None,
+                xv.data_ptr() if want_x else None, T, H, W, block, run,
+                xi_unit, *divisor_params(2 * xi_unit),
+                _build.stream_ptr(ufp.device))
     _build.check(err, "lorenzo_residual")
     lorenzo_residual.launches += 1
     return out

@@ -31,18 +31,57 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("xi_unit,block", [(1, 16), (3, 16), (1024, 13)])
-def test_lorenzo_kernel_equals_plain(dev, xi_unit, block):
-    rng = np.random.default_rng(xi_unit)
-    shape = (4, 70, 90)
-    dfp = torch.as_tensor(rng.integers(-(2 ** 29), 2 ** 29, shape), device=dev)
+def _lorenzo_inputs(shape, xi_unit, amp, dev, seed):
+    """(ufp, vfp, k, lossless) with n_levels 3, lossless vertices and a
+    quarter of the values on a rounding half-way point."""
+    rng = np.random.default_rng(seed)
     eb = torch.as_tensor(rng.integers(0, 8 * xi_unit, shape), device=dev)
     k, ll = quantize.quantize_eb(eb, xi_unit, 3)
-    n0 = k1.lorenzo_residual.launches
-    got = k1.lorenzo_residual(dfp, k, ll, xi_unit, block)
-    torch.cuda.synchronize()
-    assert k1.lorenzo_residual.launches == n0 + 1
-    assert torch.equal(got, r1.lorenzo_residual(dfp, k, ll, xi_unit, block))
+    kk = torch.where(ll, 0, k.clamp(min=0)).to(torch.int64)
+    half = torch.full_like(kk, xi_unit) << kk
+    out = []
+    for _ in range(2):
+        d = torch.as_tensor(rng.integers(-amp, amp, shape), device=dev)
+        m = torch.as_tensor(rng.integers(0, 1000, shape), device=dev)
+        on = torch.as_tensor(rng.random(shape) < 0.25, device=dev)
+        out.append(torch.where(on, (2 * m + 1) * half, d))
+    return (*out, k, ll)
+
+
+def _lorenzo_check(args, xi_unit, block, run=None):
+    plain = r1.lorenzo_residual(*args, xi_unit, block, True)
+    for want_x in (False, True):
+        n0 = k1.lorenzo_residual.launches
+        got = k1.lorenzo_residual(*args, xi_unit, block, want_x, run)
+        torch.cuda.synchronize()
+        assert k1.lorenzo_residual.launches == n0 + 1
+        assert len(got) == (4 if want_x else 2)
+        for g, w in zip(got, plain):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("xi_unit,block", [(1, 16), (3, 16), (1024, 13)])
+def test_lorenzo_kernel_equals_plain(dev, xi_unit, block):
+    args = _lorenzo_inputs((4, 70, 90), xi_unit, 2 ** 29, dev, xi_unit)
+    _lorenzo_check(args, xi_unit, block)
+
+
+# |dfp| beyond 2^32 and up to the int64 edge (the 64-bit path and the
+# wrap of |d| + q/2), g >= 2^32 (no 32-bit path), frame runs that do not
+# divide T, blocks that are and are not tile edges, partial tiles
+@pytest.mark.parametrize("shape,xi_unit,block,amp,run", [
+    ((7, 70, 90), 3, 16, 2 ** 40, None),
+    ((7, 70, 90), 2 ** 27, 13, 2 ** 62, 3),
+    ((9, 33, 130), 2 ** 31, 16, 2 ** 33, 4),
+    ((5, 100, 225), 1, 40, 2 ** 29, 2),
+    ((6, 17, 200), 7, 5, 2 ** 29, 1),
+])
+def test_lorenzo_kernel_wide_path_and_runs(dev, shape, xi_unit, block, amp,
+                                           run):
+    ufp, vfp, k, ll = _lorenzo_inputs(shape, xi_unit, amp, dev, amp % 97)
+    ufp[0, 0, :4] = torch.tensor([2 ** 63 - 1, -(2 ** 63) + 1, 2 ** 62,
+                                  -(2 ** 63)], device=dev)
+    _lorenzo_check((ufp, vfp, k, ll), xi_unit, block, run)
 
 
 def test_face_crossed_kernel_equals_plain(dev):
@@ -149,10 +188,11 @@ def test_sl_decode_kernel_equals_plain(dev, shape, block, kind, amp):
 
 
 @pytest.mark.parametrize("B,n,offset", [(1, 1, 0), (3, 1000, 0),
-                                        (8, 4097, 5), (2, 1 << 20, 3)])
+                                        (8, 4097, 5), (2, 1 << 20, 3),
+                                        (8, (1 << 24) + 5, 0)])
 def test_histogram_kernel_equals_plain(dev, B, n, offset):
-    """Random, all-zero and all-255 rows, ragged n and a start that is
-    not 16-byte aligned."""
+    """Random, all-zero, all-255 and only-symbols->=4 rows, ragged n and a
+    start that is not 16-byte aligned."""
     rng = np.random.default_rng(n)
     flat = rng.integers(0, 256, offset + B * n).astype(np.uint8)
     flat[offset::2] = rng.integers(0, 4, len(flat[offset::2]))
@@ -160,12 +200,28 @@ def test_histogram_kernel_equals_plain(dev, B, n, offset):
     if B >= 3:
         sym[1] = 0
         sym[2] = 255
+    if B >= 4:
+        sym[3] = torch.randint(4, 256, (n,), dtype=torch.uint8, device=dev)
     n0 = k5.symbol_histogram.launches
     got = k5.symbol_histogram(sym)
     torch.cuda.synchronize()
     assert k5.symbol_histogram.launches == n0 + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, r5.symbol_histogram(sym))
+
+
+def test_histogram_kernel_leaves_workspace_clean(dev):
+    """Back-to-back launches of different B and n on one stream (the
+    workspace is reused and must come back zeroed) each equal the plain
+    version."""
+    rng = np.random.default_rng(7)
+    for B, n in [(2, 3_000_001), (5, 999), (2, 3_000_001), (1, 17),
+                 (9, 70_001)]:
+        sym = torch.as_tensor(rng.integers(0, 6, (B, n)).astype(np.uint8),
+                              device=dev)
+        got = k5.symbol_histogram(sym)
+        torch.cuda.synchronize()
+        assert torch.equal(got, r5.symbol_histogram(sym)), (B, n)
 
 
 @pytest.mark.parametrize("codec", ["host", "device"])

@@ -27,19 +27,21 @@ from repro_torch.kernels.semilagrange import ops as sl_ops
                                        ((2, 40, 72), 2 ** 20)])
 def test_lorenzo_plain_matches_pallas_and_numpy(shape, tau):
     rng = np.random.default_rng(0)
-    dfp = rng.integers(-(2 ** 29), 2 ** 29, shape).astype(np.int64)
+    dfp = rng.integers(-(2 ** 29), 2 ** 29, (2,) + shape).astype(np.int64)
     xi_unit, n_levels = r_quantize.ladder(tau)
     eb = rng.integers(0, tau + 1, shape).astype(np.int64)
     k, lossless = r_quantize.quantize_eb(jnp.asarray(eb), xi_unit, n_levels)
-    want = {be: np.asarray(r_backend.lorenzo_residual(
-        jnp.asarray(dfp), k, lossless, xi_unit, 16, be))
-        for be in ("pallas", "numpy")}
     got = lz_ops.lorenzo_residual(
-        torch.as_tensor(dfp), torch.as_tensor(np.array(k)),
-        torch.as_tensor(np.array(lossless)), xi_unit, 16)
-    assert got.dtype == torch.int64
-    assert np.array_equal(got.numpy(), want["pallas"])
-    assert np.array_equal(got.numpy(), want["numpy"])
+        torch.as_tensor(dfp[0]), torch.as_tensor(dfp[1]),
+        torch.as_tensor(np.array(k)), torch.as_tensor(np.array(lossless)),
+        xi_unit, 16)
+    for c in range(2):
+        want = {be: np.asarray(r_backend.lorenzo_residual(
+            jnp.asarray(dfp[c]), k, lossless, xi_unit, 16, be))
+            for be in ("pallas", "numpy")}
+        assert got[c].dtype == torch.int64
+        assert np.array_equal(got[c].numpy(), want["pallas"])
+        assert np.array_equal(got[c].numpy(), want["numpy"])
 
 
 @pytest.mark.parametrize("xi_unit", [1, 3])
@@ -48,16 +50,18 @@ def test_lorenzo_plain_small_xi_unit(xi_unit):
     version (and kernel) needs no demotion."""
     rng = np.random.default_rng(xi_unit)
     shape = (3, 33, 47)
-    dfp = rng.integers(-(2 ** 29), 2 ** 29, shape).astype(np.int64)
+    dfp = rng.integers(-(2 ** 29), 2 ** 29, (2,) + shape).astype(np.int64)
     eb = rng.integers(0, 8 * xi_unit, shape).astype(np.int64)
     k, ll = r_quantize.quantize_eb(jnp.asarray(eb), xi_unit, 3)
-    want = r_backend._lorenzo_residual_np(dfp, np.asarray(k), np.asarray(ll),
-                                          xi_unit, 16)
-    got = backend.lorenzo_residual(torch.as_tensor(dfp),
+    got = backend.lorenzo_residual(torch.as_tensor(dfp[0]),
+                                   torch.as_tensor(dfp[1]),
                                    torch.as_tensor(np.array(k)),
                                    torch.as_tensor(np.array(ll)),
                                    xi_unit, 16)
-    assert np.array_equal(got.numpy(), want)
+    for c in range(2):
+        want = r_backend._lorenzo_residual_np(dfp[c], np.asarray(k),
+                                              np.asarray(ll), xi_unit, 16)
+        assert np.array_equal(got[c].numpy(), want)
 
 
 @pytest.mark.parametrize("n", [5, 300])
@@ -168,7 +172,7 @@ def test_wrappers_refuse_cpu_tensors():
 
     x = torch.zeros((2, 4, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        k1.lorenzo_residual(x, x.to(torch.int32), x.bool(), 1, 16)
+        k1.lorenzo_residual(x, x, x.to(torch.int32), x.bool(), 1, 16)
     with pytest.raises(ValueError, match="CUDA"):
         k2.face_crossed(x.reshape(-1), x.reshape(-1),
                         torch.zeros((1, 3), dtype=torch.int64))
