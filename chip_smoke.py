@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught):
               src/repro_torch/csrc into build/repro_torch (parallel, one
               nvcc per source; semilagrange.cu holds K3 and K4)
 2. kernels -- each of the five kernels against its plain PyTorch version
-              on the card, bitwise, on random inputs that force its edge
+              on the card, bitwise, on inputs that force its edge
               cases: K1 (both components in one launch, with and without
               the quantized fields) at blocks 16 and 13, on rounding
               half-way points, |dfp| beyond 2^32 up to the int64 edge
@@ -19,7 +19,13 @@ Phases (any failure exits non-zero; nothing is caught):
               (sl_decode, one cooperative launch a field) on every
               blockmap pattern, partial blocks and clamped
               substeps; K4 with displacements that leave its halo, also
-              against one launch of the per-frame stepper sl_step a frame
+              against one launch of the per-frame stepper sl_step a frame;
+              K2 verify_faces (one launch a verify round: screen or
+              touched-face selection, predicate, compare, force) in both
+              modes on the SCF analogue's first verify round, with a
+              random delta, on all-zero / one-sign originals and on
+              planes wider than a CTA's column block, and
+              the kept subset predicate face_crossed on random faces
 3. parity  -- compress on the card == compress on the CPU, byte for byte,
               with the host codec and with codec="device", on a
               vortex-street field and on a field whose verify rounds
@@ -29,9 +35,9 @@ Phases (any failure exits non-zero; nothing is caught):
               archive field vortex_street(T=64, H=512, W=512), with the
               launches of every kernel counted over each run (counts set
               to 0 just before, read just after: one sl_decode a
-              decompress, verify rounds + 1 a compress, the same for K1
-              and K4, no per-frame sl_step, no dual_quantize outside
-              K1), the pointwise bound,
+              decompress, verify rounds + 1 a compress, the same for K1,
+              K4 and verify_faces, no per-frame sl_step, no face_crossed,
+              no dual_quantize outside K1), the pointwise bound,
               FC_t = FC_s = 0, the host codec's bytes and the device
               codec's decode == the host codec's decode checked, plus a
               traced run with host-clock seconds per stage and a
@@ -67,6 +73,8 @@ F64_FLOPS = 34e12
 SIZES = {
     "k1": (8, 256, 256),
     "k2": 1 << 20,
+    # verify_faces on planes wider than a CTA's column block
+    "k2_wide": [(3, 2, 1025), (10, 4, 20000)],
     "k3": (128, 192),
     "k4": (12, 128, 192),
     # sl_decode: (shape, block, blockmap kind, amplitude); the edge cases
@@ -91,7 +99,7 @@ KERNELS = [
     # name, module, wrapper attribute, source, replaced Pallas function
     ("lorenzo_residual", "lorenzo", "lorenzo_residual",
      "src/repro_torch/csrc/lorenzo.cu", "src/repro/kernels/lorenzo/kernel.py:68"),
-    ("face_crossed", "cptest", "face_crossed",
+    ("verify_faces", "cptest", "verify_faces",
      "src/repro_torch/csrc/cptest.cu", "src/repro/kernels/cptest/kernel.py:102"),
     ("sl_decode", "semilagrange", "sl_decode",
      "src/repro_torch/csrc/semilagrange.cu",
@@ -127,12 +135,13 @@ def modules():
 
 def wrappers():
     """{name: the kernel wrapper function whose ``launches`` counts}, the
-    kernels of KERNELS and the per-frame stepper sl_step, which the main
-    path must not launch."""
+    kernels of KERNELS, the per-frame stepper sl_step and the subset
+    predicate face_crossed, which the main path must not launch."""
     mods = modules()
     fns = {name: getattr(mods[mod][0], attr)
            for name, mod, attr, _, _ in KERNELS}
     fns["sl_step"] = mods["semilagrange"][0].sl_step
+    fns["face_crossed"] = mods["cptest"][0].face_crossed
     return fns
 
 
@@ -239,6 +248,7 @@ def phase_kernels(dev):
     assert same(got, want), "K2 differs"
     say(f"K2 face_crossed == plain on {n} faces (zeros, ties, collinear "
         f"pairs; {int(want.sum())} crossed): bitwise")
+    verify_faces_cases(dev, k2, r2)
 
     k3, r3 = mods["semilagrange"]
     for shape, block, kind, amp in SIZES["k3_decode"]:
@@ -302,6 +312,124 @@ def phase_kernels(dev):
     say(f"K5 symbol_histogram == plain on (rows, n, offset) {SIZES['k5']} "
         "(random, small-symbol, all-0, all-255 and only->=4 rows; the "
         "workspace reused across them): bitwise")
+
+
+def verify_faces_check(k2, r2, args):
+    """verify_faces == plain on ``args`` (count and forced, each from its
+    own copy of forced), one launch; returns the count."""
+    *rest, forced = args
+    got_f, want_f = forced.clone(), forced.clone()
+    n0 = k2.verify_faces.launches
+    got = k2.verify_faces(*rest, got_f)
+    torch.cuda.synchronize()
+    assert k2.verify_faces.launches == n0 + 1
+    want = r2.verify_faces(*rest, want_f)
+    assert int(got) == int(want) and same(got_f, want_f), \
+        "verify_faces differs"
+    assert same(got_f | forced, got_f), "verify_faces cleared a forced bit"
+    return int(got)
+
+
+def first_verify_round(dev):
+    """The verify_faces arguments of the SCF analogue's first verify
+    round on the card (a compress with backend.verify_faces wrapped)."""
+    import repro_torch as rt
+    from repro_torch.core import backend
+    from repro_torch.data import synthetic
+
+    T, H, W = SIZES["main"][0]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    seen = []
+    orig = backend.verify_faces
+
+    def keep(*args):
+        if not seen:
+            seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return orig(*args)
+    backend.verify_faces = keep
+    try:
+        rt.compress(u, v, rt.CompressionConfig(codec="device",
+                                               **scf_meta(T, H, W)),
+                    device=dev)
+    finally:
+        backend.verify_faces = orig
+    return seen[0]
+
+
+def verify_faces_cases(dev, k2, r2):
+    """K2 verify_faces in both modes on the SCF analogue's first verify
+    round (screen; a random 1 % delta and a full delta, also with u
+    shifted so that predicates flip), on all-zero and one-sign
+    originals (every / no face selected), and on planes wider than a
+    CTA's column block."""
+    ur, vr, ufp, vfp, _, st, sb, s0, b0, forced = first_verify_round(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_screen = verify_faces_check(
+        k2, r2, (ur, vr, ufp, vfp, None, st, sb, s0, b0, forced))
+    # u shifted by 2^20 moves the zero set, so some predicates flip
+    shifted = ur + (1 << 20)
+    counts = []
+    for frac in (0.01, 1.0):
+        delta = torch.rand(ur.shape, generator=g, device=dev) < frac
+        pre = torch.rand(ur.shape, generator=g, device=dev) < 0.05
+        for urx in (ur, shifted):
+            counts.append(verify_faces_check(
+                k2, r2, (urx, vr, ufp, vfp, delta, st, sb, s0, b0, pre)))
+    # all-zero originals: the screen clears no face
+    zero = torch.zeros_like(ufp)
+    n_zero = verify_faces_check(
+        k2, r2, (shifted, vr, zero, zero, None, st, sb, s0, b0, forced))
+    pos = torch.full_like(ufp, 7)
+    n_pos = verify_faces_check(
+        k2, r2, (pos + 1, pos + 2, pos, pos, None, st, sb, s0, b0, forced))
+    assert n_zero > 0 and n_pos == 0
+    n_wide = []
+    for shape in SIZES["k2_wide"]:
+        ufp_w, vfp_w, ur_w, vr_w = wide_fields(shape, dev)
+        st_w, sb_w, s0_w, b0_w = all_predicates(r2, ufp_w, vfp_w)
+        pre = torch.rand(shape, generator=g, device=dev) < 0.05
+        for d in (None, torch.rand(shape, generator=g, device=dev) < 0.05):
+            n_wide.append(verify_faces_check(
+                k2, r2, (ur_w, vr_w, ufp_w, vfp_w, d, st_w, sb_w, s0_w,
+                         b0_w, pre)))
+    assert min(n_wide) > 0
+    say(f"K2 verify_faces == plain (count and forced) on the SCF analogue's "
+        f"first verify round {tuple(ur.shape)}: screen {n_screen} bad faces, "
+        f"random 1 % / full delta {counts[0]} / {counts[2]} (u shifted by "
+        f"2^20: {counts[1]} / {counts[3]}), all-zero "
+        f"original with u shifted {n_zero}, one-sign fields {n_pos}; planes "
+        f"wider than a CTA's column block {SIZES['k2_wide']} (screen / "
+        f"random delta {n_wide}): bitwise")
+
+
+def wide_fields(shape, dev):
+    """(ufp, vfp, ur_fp, vr_fp) on the card: values near zero with sign
+    ties, a fifth of them large, reconstructions moved by -2..2."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    o = torch.randint(-3, 4, (2,) + shape, generator=g, device=dev)
+    big = torch.rand(o.shape, generator=g, device=dev) < 0.2
+    o = torch.where(big, torch.randint(-(1 << 20), 1 << 20, o.shape,
+                                       generator=g, device=dev), o)
+    r = o + torch.randint(-2, 3, o.shape, generator=g, device=dev)
+    return o[0].contiguous(), o[1].contiguous(), r[0].contiguous(), \
+        r[1].contiguous()
+
+
+def all_predicates(r2, ufp, vfp):
+    """(slice_tab, slab_tab, slice0, slab0): the mesh's tables and the
+    plain predicate of every face on (ufp, vfp)."""
+    from repro_torch.core import grid
+
+    T, H, W = ufp.shape
+    tabs = grid.device_tables(H, W, str(ufp.device))
+    t = torch.arange(T, device=ufp.device)[:, None, None] * (H * W)
+    uf, vf = ufp.reshape(-1), vfp.reshape(-1)
+    sl = (tabs["slice"][None] + t).reshape(-1, 3)
+    sb = (tabs["slab"][None] + t[:-1]).reshape(-1, 3)
+    return (tabs["slice"], tabs["slab"],
+            r2.face_crossed(uf, vf, sl).reshape(T, -1),
+            r2.face_crossed(uf, vf, sb).reshape(T - 1, -1))
 
 
 def lorenzo_inputs(shape, xi_unit, amp, rng, dev):
@@ -444,17 +572,18 @@ class Recorder:
 
     def _wrap(self, name, orig):
         def wrapped(*args):
+            # inputs kept before the call: verify_faces updates forced
+            work = sum(a.numel() for a in args if torch.is_tensor(a))
+            if work > self.work.get(name, -1):
+                self.work[name] = work
+                self.inputs[name] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             out = orig(*args)
             stop.record()
             self.events[name].append((start, stop))
-            work = sum(a.numel() for a in args if torch.is_tensor(a))
-            if work > self.work.get(name, -1):
-                self.work[name] = work
-                self.inputs[name] = tuple(
-                    a.clone() if torch.is_tensor(a) else a for a in args)
             return out
         return wrapped
 
@@ -631,6 +760,12 @@ def phase_main(dev):
                 f"{dec['sl_decode']}, expected {rounds} / 1"
             assert enc["sl_step"] == dec["sl_step"] == 0, \
                 f"{tag}: the per-frame stepper ran on the main path"
+            assert enc["verify_faces"] == rounds \
+                and dec["verify_faces"] == 0, \
+                f"{tag}: verify_faces launches {enc['verify_faces']}, " \
+                f"expected {rounds} (one a verify round)"
+            assert enc["face_crossed"] == dec["face_crossed"] == 0, \
+                f"{tag}: the subset predicate ran on the main path"
             assert enc["sl_step_batched"] == rounds
             assert enc["lorenzo_residual"] == rounds \
                 and dec["lorenzo_residual"] == 0, \
@@ -682,6 +817,8 @@ def run_main(dev, tag, u, v, cfg, fns):
     # second, uninstrumented run for the host-clock times
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # held: the recorded kernel inputs (phase 5's) and cached tables
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     blob2, _ = rt.compress(u, v, cfg, device=dev)
     torch.cuda.synchronize()
@@ -717,7 +854,8 @@ def run_main(dev, tag, u, v, cfg, fns):
     assert np.array_equal(ur2, ur) and np.array_equal(vr2, vr)
     say(f"{tag}: encode {enc_s:.3f} s, decode {dec_s:.3f} s "
         f"(second call, host clock), peak device memory "
-        f"{peak / 2 ** 20:.1f} MiB")
+        f"{peak / 2 ** 20:.1f} MiB ({(peak - held) / 2 ** 20:.1f} MiB above "
+        f"the {held / 2 ** 20:.1f} MiB held before the call)")
     say(f"{tag}: launches compress {json.dumps(enc_counts)}, "
         f"decompress {json.dumps(dec_counts)}; summed stream ms per "
         f"kernel (CUDA events around each call, host gaps included) "
@@ -778,10 +916,20 @@ def bound_terms(name, args, out):
         # want_x) written
         ufp, want_x = args[0], args[6]
         return ufp.numel() * (16 + 4 + 1 + 16 + (16 if want_x else 0)), 0
-    if name == "face_crossed":
-        u_flat, _, verts = args
-        n_used = int(torch.unique(verts).numel())
-        return verts.numel() * 8 + n_used * 16 + verts.shape[0], 0
+    if name == "verify_faces":
+        # screen: the four int64 vertex arrays; incremental: delta and
+        # (ur, vr) at the vertices of the selected faces; both: the two
+        # face tables once, the original predicate of each selected face
+        # and the forced bytes of the bad faces' vertices (3 a bad face;
+        # out is the plain version's count)
+        ur, delta, st, sb = args[0], args[4], args[5], args[6]
+        verts = selected_faces(args)
+        if delta is None:
+            fields = ur.numel() * 32
+        else:
+            fields = delta.numel() + int(torch.unique(verts).numel()) * 16
+        return (fields + (st.numel() + sb.numel()) * 8 + verts.shape[0]
+                + 3 * int(out)), 0
     if name == "symbol_histogram":
         # n uint8 read, 256 int32 written per row; the integer adds are
         # not counted (the card's peak table has no scalar integer rate)
@@ -797,6 +945,19 @@ def bound_terms(name, args, out):
                 sl_ops_count(xu, xv, *args[7:]))
     # sl_step_batched: 16 B in, 16 B out per pixel
     return args[0].numel() * 32, sl_ops_count(*args)
+
+
+def selected_faces(args):
+    """(N, 3) global vertex ids of the faces verify_faces re-checks on
+    these inputs (the plain version's selection)."""
+    from repro_torch.kernels.cptest import ref
+
+    ur, st, sb = args[0], args[5], args[6]
+    HW = ur.shape[1] * ur.shape[2]
+    sel_sl, sel_sb = ref.selection(*args[:7])
+    ts, fs = torch.nonzero(sel_sl, as_tuple=True)
+    tb, fb = torch.nonzero(sel_sb, as_tuple=True)
+    return torch.cat([st[fs] + ts[:, None] * HW, sb[fb] + tb[:, None] * HW])
 
 
 def library_call(name, args):
@@ -822,8 +983,16 @@ def phase_table(main):
         kern = getattr(kmod, attr)
         plain = getattr(rmod, attr)
         saved = kern.launches
-        got = kern(*args)
-        want = plain(*args)
+        if name == "verify_faces":
+            # forced is updated in place: each version gets its own copy,
+            # and the mask is compared beside the count
+            *rest, forced = args
+            got_f, want_f = forced.clone(), forced.clone()
+            got, want = kern(*rest, got_f), plain(*rest, want_f)
+            assert same(got_f, want_f), f"{name}: forced masks differ"
+        else:
+            got = kern(*args)
+            want = plain(*args)
         assert same(got, want), f"{name}: kernel != plain on main-path inputs"
         err = max_abs_err(got, want)
         call_ms = time_ms(lambda: kern(*args), 50)
@@ -855,6 +1024,11 @@ def phase_table(main):
                         f"{sl_branches(xu, xv, *args[7:])})")
         if name == "sl_step_batched":
             lib_txt += f" ({sl_branches(*args)})"
+        if name == "verify_faces":
+            n_faces = (args[7].numel() + args[8].numel())
+            lib_txt += (f", {n_faces} faces, {selected_faces(args).shape[0]} "
+                        f"selected ({'screen' if args[4] is None else 'delta'}"
+                        f"), {int(want)} bad")
         say(f"table {name}: main-path inputs {shapes}, kernel {ms:.5f} ms "
             f"({how}), {call_ms:.5f} ms per call "
             f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per "

@@ -7,8 +7,8 @@ backend name and no fallback between the two.
 
 Determinism contract:
 
-* the integer ops (Lorenzo residual, SoS predicate, symbol histogram)
-  are exact and equal on every device;
+* the integer ops (Lorenzo residual, SoS predicate and the verify round
+  built on it, symbol histogram) are exact and equal on every device;
 * the SL stepper is f64 with every operation rounded once, in the op
   order of the JAX package's numpy stepper: kernel and plain version are
   bitwise equal to that stepper, so the header records
@@ -84,11 +84,21 @@ def sl_predictions(xu, xv, g2f: float, cfl_x: float, cfl_y: float,
                                    d_max, n_max)
 
 
-def face_crossed(u_flat, v_flat, verts):
-    """Exact SoS predicate of the faces ``verts`` (N, 3) global vertex
-    ids, gathered from the flat value arrays.  Returns (N,) bool."""
-    return _cp_ops.face_crossed(u_flat.contiguous(), v_flat.contiguous(),
-                                verts.contiguous())
+def verify_faces(ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab, slice0,
+                 slab0, forced):
+    """Face re-verification of one verify round (one K2 launch on CUDA):
+    ``delta is None`` selects the faces the sign-stability screen cannot
+    clear (first round), else the faces with a vertex in ``delta`` (the
+    newly forced vertices).  A selected face whose SoS predicate on the
+    (T, H, W) reconstructions (ur_fp, vr_fp) differs from its original
+    predicate (slice0 (T, Fs), slab0 (T-1, Fb)) gets its three vertices
+    set in ``forced`` (updated in place, so it must be contiguous).
+    Returns the bad-face count as a 0-d int64 tensor on the device."""
+    def c(t):
+        return None if t is None else t.contiguous()
+    return _cp_ops.verify_faces(c(ur_fp), c(vr_fp), c(ufp), c(vfp), c(delta),
+                                c(slice_tab), c(slab_tab), c(slice0),
+                                c(slab0), forced)
 
 
 def symbol_histogram(sym):

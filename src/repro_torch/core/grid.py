@@ -16,7 +16,8 @@ plane in {0, 1}, sid = i * W + j):
 Vertex ids inside a face are strictly increasing, so the SoS index
 order is the id order.  The tables are built once per (H, W) with numpy
 (int32, the same enumeration as the JAX package) and uploaded once per
-device as int64 tensors (``device_tables``).
+device as int64 tensors (``device_tables``); ``face_walk`` lists the
+same faces grouped by their first vertex, for the verify kernel.
 """
 from __future__ import annotations
 
@@ -135,3 +136,32 @@ def device_tables(H: int, W: int, device: str) -> dict:
         "slice_inc": up(incidence_table(H, W, "slice")),
         "slab_inc": up(incidence_table(H, W, "slab")),
     }
+
+
+@lru_cache(maxsize=32)
+def face_walk_table(H: int, W: int):
+    """The slice faces and then the slab faces, grouped by the plane
+    position (local id mod H W) of their first vertex: (records, start).
+    records (Fs + Fb, 4) int32 rows (index, three local ids), index f for
+    slice face f and Fs + f for slab face f, sorted stably by that
+    position; start (H W + 1,) int32, the first record of each position.
+    Every face's vertices lie in its first vertex's row or the next and
+    in its column or the next (the mesh's cells), as the kernel needs."""
+    hw = H * W
+    tab = np.concatenate([slab_faces(H, W)["slice0"],
+                          slab_face_table(H, W)]).astype(np.int64)
+    first = (tab % hw).min(axis=1)
+    order = np.argsort(first, kind="stable")
+    records = np.concatenate([order[:, None], tab[order]], axis=1)
+    start = np.concatenate([[0], np.cumsum(np.bincount(first,
+                                                       minlength=hw))])
+    return records.astype(np.int32), start.astype(np.int32)
+
+
+@lru_cache(maxsize=16)
+def face_walk(H: int, W: int, device: str):
+    """``face_walk_table`` as int32 tensors on ``device`` (uploaded once
+    per (H, W, device), beside ``device_tables``)."""
+    dev = torch.device(device)
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in face_walk_table(H, W))

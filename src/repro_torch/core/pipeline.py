@@ -179,7 +179,7 @@ def _levels(eb_vertex, lossless_extra, xi_unit, n_levels):
 def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
                    scale, xi_unit, eb_abs):
     """Reconstruct, re-fix, flag pointwise-bound violations.  Returns
-    (forced set, n violations, ur_fp, vr_fp)."""
+    (forced set, n violations as a 0-d device tensor, ur_fp, vr_fp)."""
     u_rec, v_rec = _reconstruct(xu_d, xv_d, scale, xi_unit, lossless,
                                 u_raw, v_raw)
     ur_fp = torch.round(u_rec.to(torch.float64) * scale).to(torch.int64)
@@ -188,93 +188,7 @@ def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
         torch.abs(u_rec.to(torch.float64) - u_raw.to(torch.float64)),
         torch.abs(v_rec.to(torch.float64) - v_raw.to(torch.float64)))
     bad_pt = err > eb_abs
-    return lossless_extra | bad_pt, int(bad_pt.sum()), ur_fp, vr_fp
-
-
-def _face_all(m, tab):
-    return m[:, tab[:, 0]] & m[:, tab[:, 1]] & m[:, tab[:, 2]]
-
-
-def _screen_unsafe_core(shape, tabs, ufp, vfp, ur_fp, vr_fp):
-    """Faces whose predicate COULD have flipped (sound screen): a face
-    whose u- (or v-) components keep one strict sign in both the
-    original and the reconstruction cannot be crossed in either."""
-    T, H, W = shape
-    HW = H * W
-    masks = []
-    for o, r in ((ufp, ur_fp), (vfp, vr_fp)):
-        masks.append(((o > 0) & (r > 0)).reshape(T, HW))
-        masks.append(((o < 0) & (r < 0)).reshape(T, HW))
-
-    def unsafe(ms, tab):
-        safe = _face_all(ms[0], tab)
-        for m in ms[1:]:
-            safe |= _face_all(m, tab)
-        return ~safe
-
-    unsafe_slice = unsafe(masks, tabs["slice"])
-    pair = [torch.cat([m[:-1], m[1:]], dim=1) for m in masks]
-    return unsafe_slice, unsafe(pair, tabs["slab"])
-
-
-def _face_verts(ts, fs, tb, fb, HW, tabs):
-    """Global vertex-id triples for explicit (slice, slab) face indices."""
-    return torch.cat([tabs["slice"][fs] + ts[:, None] * HW,
-                      tabs["slab"][fb] + tb[:, None] * HW], dim=0)
-
-
-def _selection(unsafe_sl, unsafe_sb, HW, tabs):
-    ts, fs = torch.nonzero(unsafe_sl, as_tuple=True)
-    tb, fb = torch.nonzero(unsafe_sb, as_tuple=True)
-    return _face_verts(ts, fs, tb, fb, HW, tabs), (ts, fs), (tb, fb)
-
-
-def _touched_faces(delta, T, H, W, tabs):
-    """Faces incident to newly-forced vertices -> selection."""
-    HW = H * W
-    d2 = delta.reshape(T, HW)
-    pair = torch.cat([d2[:-1], d2[1:]], dim=1)
-
-    def face_any(m, tab):
-        return m[:, tab[:, 0]] | m[:, tab[:, 1]] | m[:, tab[:, 2]]
-
-    return _selection(face_any(d2, tabs["slice"]),
-                      face_any(pair, tabs["slab"]), HW, tabs)
-
-
-def face_recheck(shape, ur_fp, vr_fp, preds, selection):
-    """Exact SoS re-evaluation of a face selection against the original
-    predicates ``preds = (slice0, slab0)``.  Returns (forced additions
-    bool tensor of ``shape`` or None, n_bad)."""
-    verts, (ts, fs), (tb, fb) = selection
-    if not len(verts):
-        return None, 0
-    slice0, slab0 = preds
-    orig = torch.cat([slice0[ts, fs], slab0[tb, fb]])
-    crossed = backend.face_crossed(ur_fp.reshape(-1), vr_fp.reshape(-1),
-                                   verts)
-    bad = crossed != orig
-    n_bad = int(bad.sum())
-    if n_bad == 0:
-        return None, 0
-    T, H, W = shape
-    add = torch.zeros(T * H * W, dtype=torch.bool, device=ur_fp.device)
-    add[verts[bad].reshape(-1)] = True
-    return add.reshape(shape), n_bad
-
-
-def check_faces(shape, tabs, ufp, vfp, ur_fp, vr_fp, preds, delta):
-    """Face re-verification where predicates could have changed:
-    ``delta is None`` -> the sign-stability screen (first contact);
-    else only faces incident to newly-forced ``delta`` vertices."""
-    T, H, W = shape
-    if delta is None:
-        unsafe_sl, unsafe_sb = _screen_unsafe_core(shape, tabs, ufp, vfp,
-                                                   ur_fp, vr_fp)
-        selection = _selection(unsafe_sl, unsafe_sb, H * W, tabs)
-    else:
-        selection = _touched_faces(delta, T, H, W, tabs)
-    return face_recheck(shape, ur_fp, vr_fp, preds, selection)
+    return lossless_extra | bad_pt, bad_pt.sum(), ur_fp, vr_fp
 
 
 # ----------------------------------------------------------------------
@@ -372,17 +286,19 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
 
 def _verify_round(ex, shape, tabs, preds, prev_extra, ufp, vfp, u, v,
                   xu_d, xv_d, lossless, lossless_extra):
-    """One verify round: pointwise check + screened / incremental face
-    re-verification.  Returns (new forced set, n_bad)."""
+    """One verify round: pointwise check + face re-verification (the
+    sign-stability screen in the first round, the faces touched by the
+    newly forced vertices after it), one ``backend.verify_faces`` call.
+    Returns (new forced set, n_bad); reading n_bad is the round's one
+    host sync."""
     p = ex.plan
-    forced, n_bad, ur_fp, vr_fp = _check_pt_core(
+    forced, n_pt, ur_fp, vr_fp = _check_pt_core(
         xu_d, xv_d, lossless, lossless_extra, u, v, p.scale, p.xi_unit,
         p.eb_abs)
     delta = None if prev_extra is None else lossless_extra ^ prev_extra
-    add, nf = check_faces(shape, tabs, ufp, vfp, ur_fp, vr_fp, preds, delta)
-    if add is not None:
-        forced = forced | add
-    return forced, n_bad + nf
+    n_face = backend.verify_faces(ur_fp, vr_fp, ufp, vfp, delta,
+                                  tabs["slice"], tabs["slab"], *preds, forced)
+    return forced, int(n_pt + n_face)
 
 
 def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:

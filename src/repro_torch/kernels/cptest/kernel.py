@@ -1,5 +1,7 @@
-"""ctypes wrapper of K2 (csrc/cptest.cu): the exact SoS face-crossing
-predicate with the vertex-value gather fused in.
+"""ctypes wrappers of K2 (csrc/cptest.cu): the exact SoS face-crossing
+predicate with the vertex-value gather fused in (``face_crossed``), and
+one verify round of the encoder's fixpoint built on it, in one launch
+(``verify_faces``).
 
 Replaces ``repro/kernels/cptest/kernel.py::face_crossed_pallas``.
 """
@@ -10,6 +12,13 @@ import ctypes
 import torch
 
 from .. import _build
+from ...core import grid
+
+# (device index, stream handle) -> verify_faces' workspace of two uint64
+# (the bad-face sum and the CTA ticket), zero between launches (the kernel
+# leaves them so).  Launches on one stream run in order, so one workspace
+# per stream is never used by two launches at once.
+_WORK: dict = {}
 
 
 def _fn():
@@ -19,20 +28,34 @@ def _fn():
     return f
 
 
+def _verify_fn():
+    f = _build.load("cptest").verify_faces
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p, p, p, p, p, p, p, i32, i32, p, p, i32, i32, i32, p, p,
+                  p, p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _check(tensors, dtype, what):
+    first = tensors[0]
+    if not first.is_cuda:
+        raise ValueError(f"{what} kernel needs CUDA tensors")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {t.dtype}")
+        if t.device != first.device:
+            raise ValueError("inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
 def face_crossed(u_flat: torch.Tensor, v_flat: torch.Tensor,
                  verts: torch.Tensor) -> torch.Tensor:
     """u_flat, v_flat (N_v,) int64 vertex values (|.| <= 2^30); verts
     (N, 3) int64 global vertex ids in [0, N_v), all contiguous on one
     CUDA device.  Returns (N,) bool."""
-    if not u_flat.is_cuda:
-        raise ValueError("face_crossed kernel needs CUDA tensors")
-    for t in (u_flat, v_flat, verts):
-        if t.dtype != torch.int64:
-            raise TypeError(f"expected int64, got {t.dtype}")
-        if t.device != u_flat.device:
-            raise ValueError("inputs on different devices")
-        if not t.is_contiguous():
-            raise ValueError("inputs must be contiguous")
+    _check((u_flat, v_flat, verts), torch.int64, "face_crossed")
     if u_flat.ndim != 1 or v_flat.shape != u_flat.shape \
             or verts.ndim != 2 or verts.shape[1] != 3:
         raise ValueError(f"bad shapes {tuple(u_flat.shape)} "
@@ -47,3 +70,71 @@ def face_crossed(u_flat: torch.Tensor, v_flat: torch.Tensor,
 
 
 face_crossed.launches = 0
+
+
+def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
+                 delta, slice_tab: torch.Tensor, slab_tab: torch.Tensor,
+                 slice0: torch.Tensor, slab0: torch.Tensor,
+                 forced: torch.Tensor) -> torch.Tensor:
+    """One verify round over every slice and slab face, in one launch.
+
+    ur_fp, vr_fp (T, H, W) int64 reconstructions (|.| <= 2^30); ufp, vfp
+    the originals, read only when ``delta`` is None (the screen); delta
+    (T, H, W) bool or None; slice_tab (Fs, 3) / slab_tab (Fb, 3) int64
+    local ids of ``grid.device_tables``; slice0 (T, Fs) / slab0 (T-1, Fb)
+    bool original predicates; forced (T, H, W) bool, updated in place.
+    All contiguous on one CUDA device.  The kernel walks the faces of
+    ``grid.face_walk(H, W)``, the same faces as the tables (checked by
+    their lengths).  Any W: the kernel splits wide planes into blocks of
+    columns.  Returns the number of bad faces as a 0-d int64 tensor on
+    the device."""
+    screen = delta is None
+    fields = [ur_fp, vr_fp] + ([ufp, vfp] if screen else [])
+    _check(fields + [slice_tab, slab_tab], torch.int64, "verify_faces")
+    _check([forced, slice0, slab0] + ([] if screen else [delta]),
+           torch.bool, "verify_faces")
+    if forced.device != ur_fp.device:
+        raise ValueError("inputs on different devices")
+    if ur_fp.ndim != 3 or ur_fp.shape[0] < 1:
+        raise ValueError(f"bad field shape {tuple(ur_fp.shape)}")
+    T, H, W = ur_fp.shape
+    Fs, Fb = slice_tab.shape[0], slab_tab.shape[0]
+    for t in fields + [forced] + ([] if screen else [delta]):
+        if t.shape != ur_fp.shape:
+            raise ValueError(f"field shapes differ: {tuple(t.shape)} vs "
+                             f"{tuple(ur_fp.shape)}")
+    if slice_tab.shape != (Fs, 3) or slab_tab.shape != (Fb, 3) \
+            or slice0.shape != (T, Fs) or slab0.shape != (T - 1, Fb):
+        raise ValueError(
+            f"bad face shapes {tuple(slice_tab.shape)} "
+            f"{tuple(slab_tab.shape)} {tuple(slice0.shape)} "
+            f"{tuple(slab0.shape)} for T = {T}")
+    if Fs + Fb >= 2 ** 31 or 2 * H * W >= 2 ** 31:
+        raise ValueError(f"{Fs + Fb} faces on {H}x{W} planes: the face "
+                         "records are int32")
+    dev = ur_fp.device
+    out = torch.empty((), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = _build.stream_ptr(dev)
+        key = (dev.index, stream.value)
+        work = _WORK.get(key)
+        if work is None:
+            work = _WORK[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+        records, start = grid.face_walk(H, W, str(dev))
+        if records.shape[0] != Fs + Fb:
+            raise ValueError(f"{Fs} + {Fb} faces are not the mesh's "
+                             f"{records.shape[0]} on {H}x{W} planes")
+        err = _verify_fn()(
+            ur_fp.data_ptr(), vr_fp.data_ptr(),
+            ufp.data_ptr() if screen else None,
+            vfp.data_ptr() if screen else None,
+            None if screen else delta.data_ptr(),
+            records.data_ptr(), start.data_ptr(), Fs, Fb,
+            slice0.data_ptr(), slab0.data_ptr(), T, H, W,
+            forced.data_ptr(), work.data_ptr(), out.data_ptr(), stream)
+    _build.check(err, "verify_faces")
+    verify_faces.launches += 1
+    return out
+
+
+verify_faces.launches = 0

@@ -1,5 +1,5 @@
-"""Dispatch of the face predicate: a CUDA tensor launches K2, a CPU
-tensor takes the plain version."""
+"""Dispatch of the face predicate and the verify round: a CUDA tensor
+launches K2, a CPU tensor takes the plain version."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +14,16 @@ def face_crossed(u_flat: torch.Tensor, v_flat: torch.Tensor,
     if u_flat.device.type != "cpu":
         raise ValueError(f"no face_crossed for device {u_flat.device}")
     return ref.face_crossed(u_flat, v_flat, verts)
+
+
+def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp, delta,
+                 slice_tab: torch.Tensor, slab_tab: torch.Tensor,
+                 slice0: torch.Tensor, slab0: torch.Tensor,
+                 forced: torch.Tensor) -> torch.Tensor:
+    args = (ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab, slice0,
+            slab0, forced)
+    if ur_fp.is_cuda:
+        return kernel.verify_faces(*args)
+    if ur_fp.device.type != "cpu":
+        raise ValueError(f"no verify_faces for device {ur_fp.device}")
+    return ref.verify_faces(*args)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import predictors, quantize
+from repro_torch.core import grid, predictors, quantize
 from repro_torch.data import synthetic
 from repro_torch.kernels.cptest import kernel as k2, ref as r2
 from repro_torch.kernels.entropy import kernel as k5, ref as r5
@@ -96,6 +96,129 @@ def test_face_crossed_kernel_equals_plain(dev):
     got = k2.face_crossed(uu, vv, verts)
     torch.cuda.synchronize()
     assert torch.equal(got, r2.face_crossed(uu, vv, verts))
+
+
+def _vf_fields(shape, seed, dev):
+    """(ufp, vfp, ur_fp, vr_fp) on the card: small values with sign ties,
+    some large ones, collinear neighbour pairs, reconstructions moved by
+    0, 1 or 2 (tests/test_torch_verify_faces.py's fixture); a (12, 100,
+    225) shape takes the fixed-point vortex street instead."""
+    rng = np.random.default_rng(seed)
+    if shape == (12, 100, 225):
+        u, v = synthetic.vortex_street(T=12, H=100, W=225)
+        o = np.stack([np.round(u * 2.0 ** 8), np.round(v * 2.0 ** 8)])
+        o = o.astype(np.int64)
+    else:
+        o = rng.integers(-3, 4, (2,) + shape).astype(np.int64)
+        big = rng.random((2,) + shape) < 0.2
+        o[big] = rng.integers(-(2 ** 20), 2 ** 20, int(big.sum()))
+        flat = o.reshape(2, -1)
+        src = rng.choice(flat.shape[1], max(1, flat.shape[1] // 8),
+                         replace=False)
+        dst = np.minimum(src + 1, flat.shape[1] - 1)
+        flat[:, dst] = flat[:, src] * rng.integers(-2, 3, len(src))
+    r = o + rng.integers(-2, 3, o.shape)
+    same = rng.random(o.shape) < 0.4
+    r[same] = o[same]
+    return tuple(torch.as_tensor(a, device=dev) for a in (o[0], o[1], r[0],
+                                                          r[1]))
+
+
+def _vf_preds(ufp, vfp):
+    """(slice_tab, slab_tab, slice0, slab0): the original predicates of
+    every face by the plain predicate (any T, also 1)."""
+    T, H, W = ufp.shape
+    tabs = grid.device_tables(H, W, str(ufp.device))
+    t = torch.arange(T, device=ufp.device)[:, None, None] * (H * W)
+    uf, vf = ufp.reshape(-1), vfp.reshape(-1)
+    sl = tabs["slice"][None] + t
+    sb = tabs["slab"][None] + t[:-1]
+    Fs, Fb = sl.shape[1], sb.shape[1]
+    slice0 = r2.face_crossed(uf, vf, sl.reshape(-1, 3)).reshape(T, Fs)
+    slab0 = r2.face_crossed(uf, vf, sb.reshape(-1, 3)).reshape(T - 1, Fb)
+    return tabs["slice"], tabs["slab"], slice0, slab0
+
+
+def _vf_delta(kind, shape, dev):
+    d = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if kind == "full":
+        d[:] = True
+    elif kind == "random":
+        g = torch.Generator(device=dev).manual_seed(3)
+        d = torch.rand(shape, generator=g, device=dev) < 0.05
+    elif kind == "border":
+        d[:, 0, :] = d[:, -1, :] = d[:, :, 0] = d[:, :, -1] = True
+    return None if kind == "screen" else d
+
+
+def _vf_check(ufp, vfp, ur, vr, delta, forced0):
+    """Kernel == plain (count and forced mask), one launch; the count."""
+    preds = _vf_preds(ufp, vfp)
+    got_f, want_f = forced0.clone(), forced0.clone()
+    n0 = k2.verify_faces.launches
+    got = k2.verify_faces(ur, vr, ufp, vfp, delta, *preds, got_f)
+    torch.cuda.synchronize()
+    assert k2.verify_faces.launches == n0 + 1
+    want = r2.verify_faces(ur, vr, ufp, vfp, delta, *preds, want_f)
+    assert got.dtype == torch.int64 and got.ndim == 0
+    assert int(got) == int(want)
+    assert torch.equal(got_f, want_f)
+    assert torch.equal(got_f | forced0, got_f)     # pre-set bits stay set
+    return int(got)
+
+
+@pytest.mark.parametrize("mode", ["screen", "empty", "full", "random",
+                                  "border"])
+@pytest.mark.parametrize("shape", [(4, 16, 16), (5, 9, 13), (3, 7, 5),
+                                   (1, 8, 8), (12, 100, 225)])
+def test_verify_faces_kernel_equals_plain(dev, shape, mode):
+    ufp, vfp, ur, vr = _vf_fields(shape, sum(shape), dev)
+    forced0 = torch.rand(shape, device=dev) < 0.1
+    n = _vf_check(ufp, vfp, ur, vr, _vf_delta(mode, shape, dev), forced0)
+    if mode in ("screen", "full"):
+        assert n > 0
+    if mode == "empty":
+        assert n == 0
+
+
+@pytest.mark.parametrize("mode", ["screen", "random", "border"])
+@pytest.mark.parametrize("shape", [(3, 2, 1025), (2, 3, 6000),
+                                   (10, 4, 20000)])
+def test_verify_faces_kernel_wide_planes(dev, shape, mode):
+    """Planes wider than one CTA's column block (kMaxCols): the launch
+    splits W into blocks whose faces reach one column into the next."""
+    ufp, vfp, ur, vr = _vf_fields(shape, sum(shape), dev)
+    forced0 = torch.rand(shape, device=dev) < 0.1
+    n = _vf_check(ufp, vfp, ur, vr, _vf_delta(mode, shape, dev), forced0)
+    assert n > 0
+
+
+def test_verify_faces_kernel_every_and_no_face_selected(dev):
+    """All-zero originals: the screen clears no face; one strict sign in
+    both fields: it clears every face (count 0, forced untouched).  Back
+    to back on one stream, so the workspace must come back zeroed."""
+    for shape in [(4, 16, 16), (1, 8, 8), (12, 100, 225)]:
+        zero = torch.zeros(shape, dtype=torch.int64, device=dev)
+        _, _, ur, vr = _vf_fields(shape, 1, dev)
+        forced0 = torch.zeros(shape, dtype=torch.bool, device=dev)
+        assert _vf_check(zero, zero, ur, vr, None, forced0) > 0
+        pos = torch.full(shape, 7, dtype=torch.int64, device=dev)
+        forced0 = torch.rand(shape, device=dev) < 0.3
+        assert _vf_check(pos, pos, pos + 1, pos + 2, None, forced0) == 0
+
+
+def test_card_verify_rounds_launch_verify_faces(dev):
+    """The verify-firing fixture on the card: the reference's accounting
+    [506, 0], one verify_faces launch a round, no face_crossed."""
+    rng = np.random.default_rng(3)
+    u = (1.0e8 + rng.normal(0, 100.0, (4, 16, 16))).astype(np.float32)
+    v = (1.0e8 + rng.normal(0, 100.0, (4, 16, 16))).astype(np.float32)
+    cfg = repro_torch.CompressionConfig(eb=6.0, mode="abs")
+    k2.verify_faces.launches = k2.face_crossed.launches = 0
+    blob, stats = repro_torch.compress(u, v, cfg, device=dev)
+    assert stats["verify_bad_counts"] == [506, 0]
+    assert k2.verify_faces.launches == 2 and k2.face_crossed.launches == 0
+    assert blob == repro_torch.compress(u, v, cfg, device="cpu")[0]
 
 
 @pytest.mark.parametrize("amp,cfl", [(50, 0.05), (50_000, 0.01),

@@ -98,8 +98,8 @@ def test_face_crossed_plain_shared_vertices():
                               for _ in range(n)]), axis=1)
     want = r_backend.face_crossed(u_flat[verts], v_flat[verts], verts,
                                   backend="numpy")
-    got = backend.face_crossed(torch.as_tensor(u_flat),
-                               torch.as_tensor(v_flat), torch.as_tensor(verts))
+    got = cp_ops.face_crossed(torch.as_tensor(u_flat),
+                              torch.as_tensor(v_flat), torch.as_tensor(verts))
     assert np.array_equal(got.numpy(), want)
 
 
@@ -176,6 +176,12 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         k2.face_crossed(x.reshape(-1), x.reshape(-1),
                         torch.zeros((1, 3), dtype=torch.int64))
+    tab = torch.zeros((1, 3), dtype=torch.int64)
+    forced = x.bool()
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.verify_faces(x, x, x, x, None, tab, tab,
+                        torch.zeros((2, 1), dtype=torch.bool),
+                        torch.zeros((1, 1), dtype=torch.bool), forced)
     with pytest.raises(ValueError, match="CUDA"):
         k3.sl_step(x[0], x[0], 0.1, 1.0, 1.0, 2.0, 8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -183,5 +189,6 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         k5.symbol_histogram(x[0].to(torch.uint8))
     assert k1.lorenzo_residual.launches == 0
+    assert k2.verify_faces.launches == 0 and not forced.any()
     assert k3.sl_step_batched.launches == 0
     assert k5.symbol_histogram.launches == 0
