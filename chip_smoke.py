@@ -29,7 +29,10 @@ Phases (any failure exits non-zero; nothing is caught):
 3. parity  -- compress on the card == compress on the CPU, byte for byte,
               with the host codec and with codec="device", on a
               vortex-street field and on a field whose verify rounds
-              fire; card blobs decode equal on both devices
+              fire, with an adaptive TilePolicy (version 3 header with
+              the policy) and on a field holding NaN, +Inf and -Inf
+              (given back bitwise); card blobs decode equal on both
+              devices
 4. main    -- compress -> decompress at full size with each codec: the
               SCF analogue vortex_street(T=120, H=100, W=225) and an
               archive field vortex_street(T=64, H=512, W=512), with the
@@ -41,7 +44,15 @@ Phases (any failure exits non-zero; nothing is caught):
               FC_t = FC_s = 0, the host codec's bytes and the device
               codec's decode == the host codec's decode checked, plus a
               traced run with host-clock seconds per stage and a
-              torch.profiler run with the device's busy share
+              torch.profiler run with the device's busy share; then the
+              same with an adaptive policy (mode="rel", the protected
+              wake at eb and the rest at 4 eb) at the SCF analogue with
+              each codec and at 64x512x512 with codec="device": every
+              vertex within its own bound, ratio and peak memory beside
+              the uniform run's, the bound / cap tensors' MiB; and one
+              compress a codec at the SCF analogue with repro_torch.obs
+              tracing on (the untraced bytes, the stage spans, run_report
+              summing to the container)
 5. table   -- each kernel on the inputs the main path (device codec, SCF
               analogue) gave it: equality with its plain version, time,
               plain time, bound and, where one PyTorch call computes the
@@ -89,6 +100,9 @@ SIZES = {
            (2, 1 << 24, 0), (8, 1 << 24, 5), (8, (1 << 24) + 5, 0)],
     "parity": (8, 128, 192),
     "main": [(120, 100, 225), (64, 512, 512)],
+    # adaptive-policy runs: (shape, codecs)
+    "adaptive": [((120, 100, 225), ("host", "device")),
+                 ((64, 512, 512), ("device",))],
 }
 
 # the host codec's container bytes at the main sizes with zlib (the card's
@@ -533,6 +547,71 @@ def phase_parity(dev):
         say(f"parity {name} {u.shape}: card blob == CPU blob "
             f"({len(b_dev)} B, verify rounds {s_dev['verify_rounds']}, "
             f"bad counts {s_dev['verify_bad_counts']}); decode equal")
+    parity_adaptive(dev, fields[0][1], fields[0][2])
+    parity_nonfinite(dev, fields[0][1], fields[0][2])
+
+
+# the adaptive policy of the reference's tests (tests/test_ebpolicy.py)
+PARITY_POLICY = dict(window_t=2, tile_h=6, tile_w=8, default=5e-2,
+                     values={(0, 0, 0): 5e-3, (1, 1, 1): 1e-2,
+                             (2, 2, 1): 2e-3})
+
+
+def parity_adaptive(dev, u, v):
+    """An adaptive (TilePolicy, version 3) compress on the card == on
+    the CPU, with both codecs; the header carries the policy; decode
+    equal on both devices."""
+    import repro_torch as rt
+    from repro_torch.core import ebpolicy, encode
+
+    pol = ebpolicy.TilePolicy.make(**PARITY_POLICY)
+    for codec in ("host", "device"):
+        cfg = rt.CompressionConfig(eb=5e-2, mode="abs", codec=codec,
+                                   eb_policy=pol,
+                                   n_levels=ebpolicy.levels_for(pol))
+        b_dev, s_dev = rt.compress(u, v, cfg, device=dev)
+        b_cpu, s_cpu = rt.compress(u, v, cfg, device="cpu")
+        tag = f"parity adaptive codec={codec} {u.shape}"
+        assert b_dev == b_cpu, f"{tag}: card and CPU blobs differ"
+        header, _ = encode.unpack(b_dev)
+        assert header["version"] == 3 \
+            and ebpolicy.policy_from_spec(header["eb_policy"]) == pol, \
+            f"{tag}: header {header['version']} {header.get('eb_policy')}"
+        ur_d, vr_d = rt.decompress(b_dev, device=dev)
+        ur_c, vr_c = rt.decompress(b_dev, device="cpu")
+        assert np.array_equal(ur_d, ur_c) and np.array_equal(vr_d, vr_c)
+        say(f"{tag}: card blob == CPU blob ({len(b_dev)} B, version 3 with "
+            f"the policy, n_levels {cfg.n_levels}, verify rounds "
+            f"{s_dev['verify_rounds']} {s_dev['verify_bad_counts']}); decode "
+            "equal")
+
+
+def parity_nonfinite(dev, u, v):
+    """A field holding NaN, +Inf and -Inf (mode="abs"): card bytes ==
+    CPU bytes with both codecs, and the values come back bitwise."""
+    import repro_torch as rt
+
+    u = u.copy()
+    bad = (37, u.size // 2 + 11, u.size - 5)
+    for i, x in zip(bad, (np.nan, np.inf, -np.inf)):
+        u.flat[i] = x
+    for codec in ("host", "device"):
+        cfg = rt.CompressionConfig(eb=1e-2, mode="abs", codec=codec)
+        tag = f"parity non-finite codec={codec} {u.shape}"
+        with np.errstate(invalid="ignore"):
+            b_dev, s_dev = rt.compress(u, v, cfg, device=dev)
+            b_cpu, _ = rt.compress(u, v, cfg, device="cpu")
+        assert b_dev == b_cpu, f"{tag}: card and CPU blobs differ"
+        ur_d, vr_d = rt.decompress(b_dev, device=dev)
+        ur_c, vr_c = rt.decompress(b_dev, device="cpu")
+        for a, b in ((ur_d, ur_c), (vr_d, vr_c)):
+            assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+        got = ur_d.flat[list(bad)].view(np.uint32)
+        assert np.array_equal(got, u.flat[list(bad)].view(np.uint32)), \
+            f"{tag}: non-finite values not given back bitwise"
+        say(f"{tag}: NaN, +Inf, -Inf at flat {bad}: card blob == CPU blob "
+            f"({len(b_dev)} B, lossless_frac {s_dev['lossless_frac']:.4f}); "
+            "decode equal on both devices, the values back bitwise")
 
 
 # ----------------------------------------------------------------------
@@ -716,9 +795,74 @@ def read_counts(fns):
     return {n: fn.launches for n, fn in fns.items()}
 
 
+def check_run(tag, codec, run, u, v, dev, bound=None):
+    """The guarantees and launch-count rules of one ``run_main`` run:
+    finite output of the field's shape, the pointwise bound (the plan's
+    scalar, or ``bound``, an adaptive policy's per-vertex bounds), FC_t =
+    FC_s = 0, SL blocks selected, and the launches of every kernel."""
+    from repro_torch.core import metrics, trajectory
+
+    stats, blob, (ur, vr) = run["stats"], run["blob"], run["dec"]
+    assert ur.shape == u.shape and np.isfinite(ur).all() \
+        and np.isfinite(vr).all()
+    fc = trajectory.false_cases(u, v, ur, vr, stats["scale"], dev)
+    say(f"{tag}: ratio {stats['ratio']:.4f}, "
+        f"{len(blob)} B ({blob[:5].decode()}), verify rounds "
+        f"{stats['verify_rounds']} {stats['verify_bad_counts']}, "
+        f"sl_block_frac {stats['sl_block_frac']:.4f}, lossless_frac "
+        f"{stats['lossless_frac']:.4f}")
+    if bound is None:
+        err = metrics.max_abs_error(u, v, ur, vr)
+        say(f"{tag}: max err {err!r} <= eb_abs "
+            f"{stats['eb_abs']!r}; FC_t {fc['FC_t']} FC_s {fc['FC_s']} "
+            f"(CP_t {fc['CP_t_orig']}, CP_slab {fc['CP_slab_orig']})")
+        assert err <= stats["eb_abs"], "pointwise bound violated"
+    else:
+        err = np.maximum(np.abs(ur.astype(np.float64) - u),
+                         np.abs(vr.astype(np.float64) - v))
+        n_over = int((err > bound).sum())
+        say(f"{tag}: every vertex within its own bound ({n_over} over; "
+            f"bounds {bound.min()!r} .. {bound.max()!r}, max err/bound "
+            f"{float((err / bound).max())!r}); FC_t {fc['FC_t']} FC_s "
+            f"{fc['FC_s']} (CP_t {fc['CP_t_orig']}, CP_slab "
+            f"{fc['CP_slab_orig']})")
+        assert n_over == 0, f"{tag}: {n_over} vertices over their bound"
+    assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
+    assert stats["sl_block_frac"] > 0, "no SL block was selected"
+    enc, dec = run["enc_counts"], run["dec_counts"]
+    path = [n for n, *_ in KERNELS
+            if codec == "device" or n != "symbol_histogram"]
+    for name in path:
+        assert enc[name] + dec[name] > 0, f"{tag}: {name} not launched"
+    rounds = stats["verify_rounds"] + 1
+    assert dec["sl_decode"] == 1 and enc["sl_decode"] == rounds, \
+        f"{tag}: sl_decode launches {enc['sl_decode']} / " \
+        f"{dec['sl_decode']}, expected {rounds} / 1"
+    assert enc["sl_step"] == dec["sl_step"] == 0, \
+        f"{tag}: the per-frame stepper ran on the main path"
+    assert enc["verify_faces"] == rounds \
+        and dec["verify_faces"] == 0, \
+        f"{tag}: verify_faces launches {enc['verify_faces']}, " \
+        f"expected {rounds} (one a verify round)"
+    assert enc["face_crossed"] == dec["face_crossed"] == 0, \
+        f"{tag}: the subset predicate ran on the main path"
+    assert enc["sl_step_batched"] == rounds
+    assert enc["lorenzo_residual"] == rounds \
+        and dec["lorenzo_residual"] == 0, \
+        f"{tag}: K1 launches {enc['lorenzo_residual']}, expected " \
+        f"{rounds} (one for u and v a verify round)"
+    n_dq = enc.pop("dual_quantize")
+    assert n_dq == 0, \
+        f"{tag}: dual_quantize ran {n_dq} times beside K1 (MoP path)"
+    if codec == "host":
+        assert enc["symbol_histogram"] == 0
+    else:
+        assert blob[:5] == b"CPTH1"
+
+
 def phase_main(dev):
     import repro_torch as rt
-    from repro_torch.core import encode, metrics, trajectory
+    from repro_torch.core import encode
     from repro_torch.data import synthetic
 
     fns = wrappers()
@@ -733,50 +877,10 @@ def phase_main(dev):
             tag = f"main {T}x{H}x{W} codec={codec}"
             cfg = rt.CompressionConfig(codec=codec, **scf_meta(T, H, W))
             run = run_main(dev, tag, u, v, cfg, fns)
-            stats, blob, (ur, vr) = run["stats"], run["blob"], run["dec"]
-            assert ur.shape == u.shape and np.isfinite(ur).all() \
-                and np.isfinite(vr).all()
-            err = metrics.max_abs_error(u, v, ur, vr)
-            fc = trajectory.false_cases(u, v, ur, vr, stats["scale"], dev)
-            say(f"{tag}: ratio {stats['ratio']:.4f}, "
-                f"{len(blob)} B ({blob[:5].decode()}), verify rounds "
-                f"{stats['verify_rounds']} {stats['verify_bad_counts']}, "
-                f"sl_block_frac {stats['sl_block_frac']:.4f}, lossless_frac "
-                f"{stats['lossless_frac']:.4f}")
-            say(f"{tag}: max err {err!r} <= eb_abs "
-                f"{stats['eb_abs']!r}; FC_t {fc['FC_t']} FC_s {fc['FC_s']} "
-                f"(CP_t {fc['CP_t_orig']}, CP_slab {fc['CP_slab_orig']})")
-            assert err <= stats["eb_abs"], "pointwise bound violated"
-            assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
-            assert stats["sl_block_frac"] > 0, "no SL block was selected"
-            enc, dec = run["enc_counts"], run["dec_counts"]
-            path = [n for n, *_ in KERNELS
-                    if codec == "device" or n != "symbol_histogram"]
-            for name in path:
-                assert enc[name] + dec[name] > 0, f"{tag}: {name} not launched"
-            rounds = stats["verify_rounds"] + 1
-            assert dec["sl_decode"] == 1 and enc["sl_decode"] == rounds, \
-                f"{tag}: sl_decode launches {enc['sl_decode']} / " \
-                f"{dec['sl_decode']}, expected {rounds} / 1"
-            assert enc["sl_step"] == dec["sl_step"] == 0, \
-                f"{tag}: the per-frame stepper ran on the main path"
-            assert enc["verify_faces"] == rounds \
-                and dec["verify_faces"] == 0, \
-                f"{tag}: verify_faces launches {enc['verify_faces']}, " \
-                f"expected {rounds} (one a verify round)"
-            assert enc["face_crossed"] == dec["face_crossed"] == 0, \
-                f"{tag}: the subset predicate ran on the main path"
-            assert enc["sl_step_batched"] == rounds
-            assert enc["lorenzo_residual"] == rounds \
-                and dec["lorenzo_residual"] == 0, \
-                f"{tag}: K1 launches {enc['lorenzo_residual']}, expected " \
-                f"{rounds} (one for u and v a verify round)"
-            n_dq = enc.pop("dual_quantize")
-            assert n_dq == 0, \
-                f"{tag}: dual_quantize ran {n_dq} times beside K1 (MoP path)"
+            check_run(tag, codec, run, u, v, dev)
+            blob, (ur, vr) = run["blob"], run["dec"]
             if codec == "host":
                 host_dec = (ur, vr)
-                assert enc["symbol_histogram"] == 0
                 want = HOST_ZLIB_BYTES.get((T, H, W))
                 if encode.backend_codec() == "zlib" and want is not None:
                     assert len(blob) == want, \
@@ -784,17 +888,122 @@ def phase_main(dev):
                     say(f"{tag}: {len(blob)} B == the host codec's earlier "
                         f"{want} B")
             else:
-                assert blob[:5] == encode.MAGIC_HUF
                 assert np.array_equal(ur, host_dec[0]) \
                     and np.array_equal(vr, host_dec[1]), \
                     f"{tag}: decode differs from the host codec's"
                 say(f"{tag}: decode == the host codec's decode, bitwise")
             results.append({
-                "shape": (T, H, W), "codec": codec,
-                "launches": {n: enc[n] + dec[n] for n in enc},
+                "shape": (T, H, W), "codec": codec, "blob": blob,
+                "ratio": run["stats"]["ratio"], "enc_s": run["enc_s"],
+                "peak_above": run["peak_above"],
+                "launches": {n: run["enc_counts"][n] + run["dec_counts"][n]
+                             for n in run["enc_counts"]},
                 "inputs": run["inputs"],
             })
     return results
+
+
+# ----------------------------------------------------------------------
+# phase 4b: adaptive error bounds at full width
+# ----------------------------------------------------------------------
+
+def adaptive_policy(T, H, W, eb):
+    """A policy of the shape the reference's rate search builds
+    (src/repro/autotune/rate.py: a relaxed default, the protected units
+    at ``eb``): 8-frame windows, 4 x 5 tiles, the middle two tile rows
+    (the vortex street's wake) at ``eb`` and the rest at 4 ``eb``."""
+    from repro_torch.core import ebpolicy
+
+    return ebpolicy.TilePolicy.make(
+        8, H // 4, W // 5, default=4 * eb,
+        values={(w, ti, tj): eb for w in range(-(-T // 8))
+                for ti in (1, 2) for tj in range(5)})
+
+
+def phase_adaptive(dev, main):
+    """compress -> decompress with an adaptive policy (mode="rel") at the
+    main sizes: each vertex within its own bound, FC = 0, the launch
+    rules of the uniform runs; ratio and peak memory beside the uniform
+    run of the same field and codec."""
+    import repro_torch as rt
+    from repro_torch.core import compressor, ebpolicy
+    from repro_torch.data import synthetic
+
+    fns = wrappers()
+    eb = 1e-2
+    for (T, H, W), codecs in SIZES["adaptive"]:
+        u, v = synthetic.vortex_street(T=T, H=H, W=W)
+        pol = adaptive_policy(T, H, W, eb)
+        n_levels = ebpolicy.levels_for(pol)
+        assert n_levels == 3, n_levels
+        for codec in codecs:
+            tag = f"adaptive {T}x{H}x{W} codec={codec}"
+            cfg = rt.CompressionConfig(eb=eb, mode="rel", codec=codec,
+                                       eb_policy=pol, n_levels=n_levels,
+                                       **scf_meta(T, H, W))
+            run = run_main(dev, tag, u, v, cfg, fns)
+            bound = ebpolicy.field_bounds(
+                pol, u.shape, compressor._eb_factor(u, v, cfg))
+            check_run(tag, codec, run, u, v, dev, bound)
+            uni = next(r for r in main
+                       if r["shape"] == (T, H, W) and r["codec"] == codec)
+            mib = T * H * W * 8 / 2 ** 20
+            say(f"{tag}: ratio {run['stats']['ratio']:.4f} against the "
+                f"uniform {uni['ratio']:.4f} (eb {eb} rel; policy "
+                f"{len(pol.values)} units at {eb}, default {4 * eb}, "
+                f"n_levels {n_levels}); peak device memory "
+                f"{run['peak_above']:.1f} MiB above the held, uniform "
+                f"{uni['peak_above']:.1f} MiB; the f64 bound tensor "
+                f"{mib:.1f} MiB (all rounds) and the int64 caps tensor "
+                f"{mib:.1f} MiB (until the clamp)")
+
+
+# ----------------------------------------------------------------------
+# phase 4c: one traced run with repro_torch.obs
+# ----------------------------------------------------------------------
+
+def phase_obs(dev, main):
+    """The SCF analogue with tracing on, each codec: the bytes of the
+    untraced run, the stage spans, and run_report's byte split summing to
+    the container."""
+    import repro_torch as rt
+    from repro_torch import obs
+    from repro_torch.data import synthetic
+
+    T, H, W = SIZES["main"][0]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    for codec in ("host", "device"):
+        tag = f"obs {T}x{H}x{W} codec={codec}"
+        uni = next(r for r in main if r["shape"] == (T, H, W)
+                   and r["codec"] == codec)
+        cfg = rt.CompressionConfig(codec=codec, **scf_meta(T, H, W))
+        obs.reset()
+        obs.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob, stats = rt.compress(u, v, cfg, device=dev)
+        traced_s = time.perf_counter() - t0
+        obs.disable()
+        assert blob == uni["blob"], f"{tag}: tracing changed the bytes"
+        spans = obs.stage_durations("")
+        assert spans["pipeline.verify_round"]["count"] \
+            == stats["verify_rounds"] + 1
+        rounds = obs.snapshot().get("pipeline.verify_rounds",
+                                    {"value": 0})["value"]
+        assert rounds == stats["verify_rounds"]
+        rep = obs.run_report(blob)
+        assert rep["kind_bytes_total"] == rep["container_bytes"] \
+            == len(blob), f"{tag}: run_report bytes do not sum to the blob"
+        unit = rep["units"][0]
+        say(f"{tag}: bytes == the untraced run's; encode {traced_s:.3f} s "
+            f"traced, {uni['enc_s']:.3f} s untraced (host clock); span "
+            f"seconds (count, sum) "
+            f"{json.dumps({k: (d['count'], round(d['sum_s'], 5)) for k, d in spans.items()})}; "
+            f"pipeline.verify_rounds {rounds}")
+        say(f"{tag}: run_report {rep['container']} bytes_by_kind "
+            f"{json.dumps(rep['bytes_by_kind'])} == {len(blob)} B; achieved "
+            f"{unit['achieved_bps']} bits/symbol, Shannon "
+            f"{unit['shannon_bps']}")
 
 
 def run_main(dev, tag, u, v, cfg, fns):
@@ -862,7 +1071,8 @@ def run_main(dev, tag, u, v, cfg, fns):
         f"{json.dumps({k: round(x, 4) for k, x in kernel_ms.items()})}")
     return {"blob": blob, "stats": stats, "dec": (ur, vr),
             "enc_counts": enc_counts, "dec_counts": dec_counts,
-            "inputs": rec.inputs}
+            "inputs": rec.inputs, "peak_above": (peak - held) / 2 ** 20,
+            "enc_s": enc_s}
 
 
 # ----------------------------------------------------------------------
@@ -1067,6 +1277,8 @@ def main() -> int:
     phase_kernels(dev)
     phase_parity(dev)
     main_runs = phase_main(dev)
+    phase_adaptive(dev, main_runs)
+    phase_obs(dev, main_runs)
     rows = phase_table(main_runs)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

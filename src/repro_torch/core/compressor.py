@@ -15,6 +15,12 @@ its numpy SL stepper for the same field and config.
 the JAX package's CPTH1 container, byte-equal to its ``codec="device"``
 container with the numpy SL stepper; ``decompress`` reads both kinds.
 
+``eb_policy`` takes an adaptive per-(window, tile) policy
+(``ebpolicy.TilePolicy`` or its spec): the plan derives from the
+policy's loosest bound, each vertex's bound is clamped down to its own,
+and the container is the reference's version 3 with the policy in its
+header.  Pair a policy with ``n_levels=ebpolicy.levels_for(policy)``.
+
 ``CompressionConfig`` keeps the JAX package's fields and defaults.  The
 options whose code paths are not ported raise NotImplementedError
 naming their ROADMAP item; ``backend`` must stay None (the device picks
@@ -59,7 +65,7 @@ class CompressionConfig:
     batch_cap: int = 8                # tiled only
     q_in_frames: Optional[int] = None   # streaming only
     q_out_units: Optional[int] = None   # streaming only
-    eb_policy: Optional[object] = None  # uniform only (see ebpolicy.py)
+    eb_policy: Optional[object] = None  # None / "uniform" or a TilePolicy
 
 
 def resolve_device(device=None) -> torch.device:
@@ -104,7 +110,6 @@ def _refuse_unported(cfg: CompressionConfig, autotune, target_ratio):
     if cfg.codec not in ("host", "device"):
         raise ValueError(f"unknown codec {cfg.codec!r}; expected 'host' "
                          "or 'device'")
-    ebpolicy.normalize(cfg.eb_policy)
 
 
 def _as_fields(u, v):
@@ -141,11 +146,22 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
     dev = resolve_device(device)
     t0 = time.perf_counter()
     u, v = _as_fields(u, v)
-    eb_abs = float(cfg.eb) * _eb_factor(u, v, cfg)
+    pol = ebpolicy.normalize(cfg.eb_policy)
+    factor = _eb_factor(u, v, cfg)
+    # the plan's global (tau, xi_unit) derive from the policy's LOOSEST
+    # bound; the per-vertex caps only clamp down from there
+    eb_abs = float(cfg.eb if pol is None else ebpolicy.max_bound(pol)) \
+        * factor
     scale, ufp, vfp = fixedpoint.to_fixed(u, v, cfg.fixed_bits)
     ex = pipeline.PlanExecutor(pipeline.plan_from_cfg(cfg, scale, eb_abs),
                                dev)
-    enc = pipeline.compress_field(ex, u, v, ufp, vfp)
+    if pol is None:
+        enc = pipeline.compress_field(ex, u, v, ufp, vfp)
+    else:
+        enc = pipeline.compress_field(
+            ex, u, v, ufp, vfp,
+            eb_cap=ebpolicy.field_caps(pol, u.shape, factor, scale),
+            eb_bound=ebpolicy.field_bounds(pol, u.shape, factor))
     return pipeline.pack_field(ex, u, v, enc, t0)
 
 

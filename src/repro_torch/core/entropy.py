@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from . import backend
 from .encode import ESC, ContainerError, HuffSection, huffman_decode
 
@@ -158,6 +159,14 @@ def encode_streams(res_u, res_v) -> list[dict]:
     the same keys of ``encode.field_sections``."""
     res_u = torch.as_tensor(res_u)
     res_v = torch.as_tensor(res_v, device=res_u.device)
+    with obs.span("entropy.encode_streams", units=int(res_u.shape[0]),
+                  device=str(res_u.device)):
+        # the fetches to the host inside are the device syncs: the span
+        # closes only after the bitstreams landed
+        return _encode_streams(res_u, res_v)
+
+
+def _encode_streams(res_u, res_v) -> list[dict]:
     B = int(res_u.shape[0])
     n = int(res_u[0].numel())
     rows = torch.cat([res_u.reshape(B, n),

@@ -63,8 +63,15 @@ def select(res3_u, res3_v, ressl_u, ressl_v, block: int) -> torch.Tensor:
     def hist_pair(ru, rv):
         h = torch.zeros(n_bins, dtype=torch.int32, device=ru.device)
         for r in (ru, rv):
-            sym = torch.clamp(fold(r), max=CLIP).reshape(-1)
-            h += torch.bincount(base + sym, minlength=n_bins).to(torch.int32)
+            # the reference's scatter-add semantics: a negative key (the
+            # fold of a non-finite value's residual wraps) is wrapped once
+            # by n_bins, and a key still out of range is dropped (counted
+            # in one spare bin past the end, which keeps it sync-free)
+            key = base + torch.clamp(fold(r), max=CLIP).reshape(-1)
+            key = torch.where(key < 0, key + n_bins, key)
+            key = torch.where((key >= 0) & (key < n_bins), key, n_bins)
+            h += torch.bincount(key, minlength=n_bins + 1)[:n_bins].to(
+                torch.int32)
         return h.reshape(-1, CLIP + 1).cpu()
 
     r3 = _rate(hist_pair(res3_u, res3_v), block)

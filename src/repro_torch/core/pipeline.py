@@ -30,8 +30,9 @@ import time
 import numpy as np
 import torch
 
-from . import (backend, ebound, encode, entropy, grid, mop, predictors,
-               quantize)
+from .. import obs
+from . import (backend, ebound, ebpolicy, encode, entropy, grid, mop,
+               predictors, quantize)
 
 FORMAT_VERSION = 2
 # the adaptive (per-tile policy) monolithic container; its decode path
@@ -61,6 +62,9 @@ class PipelinePlan:
     max_rounds: int = 12
     sl_backend: str = backend.SL_BACKEND
     codec: str = "host"              # symbolize + pack: host | device
+    # canonical spec of an adaptive eb policy (ebpolicy.TilePolicy.spec),
+    # None for the uniform bound; it moves the container to version 3
+    eb_policy: object = None
 
     @property
     def g2f(self) -> float:
@@ -89,6 +93,7 @@ def plan_from_cfg(cfg, scale: float, eb_abs: float) -> PipelinePlan:
         verify=cfg.verify,
         max_rounds=cfg.max_rounds,
         codec=cfg.codec,
+        eb_policy=ebpolicy.policy_spec(ebpolicy.normalize(cfg.eb_policy)),
     )
 
 
@@ -177,9 +182,11 @@ def _levels(eb_vertex, lossless_extra, xi_unit, n_levels):
 
 
 def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
-                   scale, xi_unit, eb_abs):
-    """Reconstruct, re-fix, flag pointwise-bound violations.  Returns
-    (forced set, n violations as a 0-d device tensor, ur_fp, vr_fp)."""
+                   scale, xi_unit, bound):
+    """Reconstruct, re-fix, flag pointwise-bound violations.  ``bound``
+    is the plan's scalar ``eb_abs`` or an adaptive policy's (T, H, W)
+    float64 per-vertex bounds.  Returns (forced set, n violations as a
+    0-d device tensor, ur_fp, vr_fp)."""
     u_rec, v_rec = _reconstruct(xu_d, xv_d, scale, xi_unit, lossless,
                                 u_raw, v_raw)
     ur_fp = torch.round(u_rec.to(torch.float64) * scale).to(torch.int64)
@@ -187,7 +194,7 @@ def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
     err = torch.maximum(
         torch.abs(u_rec.to(torch.float64) - u_raw.to(torch.float64)),
         torch.abs(v_rec.to(torch.float64) - v_raw.to(torch.float64)))
-    bad_pt = err > eb_abs
+    bad_pt = err > bound
     return lossless_extra | bad_pt, bad_pt.sum(), ur_fp, vr_fp
 
 
@@ -285,30 +292,35 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
 
 
 def _verify_round(ex, shape, tabs, preds, prev_extra, ufp, vfp, u, v,
-                  xu_d, xv_d, lossless, lossless_extra):
+                  xu_d, xv_d, lossless, lossless_extra, bound):
     """One verify round: pointwise check + face re-verification (the
     sign-stability screen in the first round, the faces touched by the
     newly forced vertices after it), one ``backend.verify_faces`` call.
-    Returns (new forced set, n_bad); reading n_bad is the round's one
-    host sync."""
+    ``bound`` as in ``_check_pt_core``.  Returns (new forced set,
+    n_bad); reading n_bad is the round's one host sync."""
     p = ex.plan
     forced, n_pt, ur_fp, vr_fp = _check_pt_core(
         xu_d, xv_d, lossless, lossless_extra, u, v, p.scale, p.xi_unit,
-        p.eb_abs)
+        bound)
     delta = None if prev_extra is None else lossless_extra ^ prev_extra
     n_face = backend.verify_faces(ur_fp, vr_fp, ufp, vfp, delta,
                                   tabs["slice"], tabs["slab"], *preds, forced)
     return forced, int(n_pt + n_face)
 
 
-def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:
+def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
+                   eb_bound=None) -> FieldEncode:
     """Full-field quantize -> predict -> verify-fixpoint driver.
 
     u, v: (T, H, W) float32 numpy; ufp, vfp: int64 numpy fixed point.
     The loop forces the vertices of every violated face (and every
     vertex breaking the pointwise bound) lossless and repeats; it only
     grows the lossless set, so it terminates, and on exit FC_t = FC_s =
-    0 by construction."""
+    0 by construction.
+
+    ``eb_cap`` / ``eb_bound``: an adaptive policy's (T, H, W) int64 caps
+    and float64 absolute bounds (numpy); both None on the uniform path,
+    which then compares with the plan's scalar bound."""
     p = ex.plan
     dev = ex.device
     T, H, W = u.shape
@@ -318,8 +330,18 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:
     vfp_d = torch.as_tensor(vfp, device=dev)
     u_d = torch.as_tensor(u, device=dev)
     v_d = torch.as_tensor(v, device=dev)
-    eb_vertex, slice0, slab0 = ebound.derive_vertex_eb(
-        ufp_d, vfp_d, int(max(p.tau, 1)))
+    with obs.span("pipeline.derive_eb", shape=list(shape)):
+        eb_vertex, slice0, slab0 = ebound.derive_vertex_eb(
+            ufp_d, vfp_d, int(max(p.tau, 1)))
+        if eb_cap is not None:
+            # adaptive policy: clamp the derived bounds DOWN to the
+            # per-vertex caps (min composes with the derivation's own tau
+            # clamp); the device copy of the caps dies with the clamp
+            eb_vertex = torch.minimum(eb_vertex,
+                                      torch.as_tensor(eb_cap, device=dev))
+        obs.device_sync(eb_vertex)
+    bound = p.eb_abs if eb_bound is None \
+        else torch.as_tensor(eb_bound, device=dev)
     lossless_extra = torch.zeros(shape, dtype=torch.bool, device=dev)
     if p.tau < 1 or p.n_usable < 1:
         lossless_extra = torch.ones(shape, dtype=torch.bool, device=dev)
@@ -328,21 +350,27 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:
     rounds = 0
     bad_counts = []
     while True:
-        res_u, res_v, bm, lossless = _encode_field(
-            ex, ufp_d, vfp_d, eb_vertex, lossless_extra, shape)
+        with obs.span("pipeline.quantize_predict", round=rounds):
+            res_u, res_v, bm, lossless = _encode_field(
+                ex, ufp_d, vfp_d, eb_vertex, lossless_extra, shape)
+            obs.device_sync(res_u)
         if not p.verify:
             break
-        xu_d, xv_d = backend.sl_decode(res_u, res_v, bm, p.block, p.g2f,
-                                       p.cfl_x, p.cfl_y, p.d_max, p.n_max)
-        new_extra, n_bad = _verify_round(
-            ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d, vfp_d,
-            u_d, v_d, xu_d, xv_d, lossless, lossless_extra)
+        with obs.span("pipeline.verify_round", round=rounds) as vs:
+            xu_d, xv_d = backend.sl_decode(res_u, res_v, bm, p.block, p.g2f,
+                                           p.cfl_x, p.cfl_y, p.d_max,
+                                           p.n_max)
+            new_extra, n_bad = _verify_round(
+                ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d, vfp_d,
+                u_d, v_d, xu_d, xv_d, lossless, lossless_extra, bound)
+            vs.set(n_bad=n_bad)
         bad_counts.append(n_bad)
         if n_bad == 0 or rounds >= p.max_rounds:
             break
         prev_extra = lossless_extra
         lossless_extra = new_extra
         rounds += 1
+    obs.count("pipeline.verify_rounds", rounds)
     return FieldEncode(res_u, res_v, bm, lossless, rounds, bad_counts)
 
 
@@ -351,13 +379,20 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp) -> FieldEncode:
 # ----------------------------------------------------------------------
 
 def field_header(plan: PipelinePlan, shape) -> dict:
-    """The JAX package's ``pipeline.field_header`` for a uniform fused
-    plan, with this package's SL stepper tag."""
+    """The JAX package's ``pipeline.field_header`` for a fused plan, with
+    this package's SL stepper tag.  The key order fixes the bytes."""
     T, H, W = shape
-    return {
-        "version": FORMAT_VERSION,
+    header = {
+        # the version moves only with a policy: uniform containers stay
+        # byte-identical to the pre-policy ones
+        "version": (FORMAT_VERSION_ADAPTIVE if plan.eb_policy
+                    else FORMAT_VERSION),
         "pipeline": plan.name,
         "predictor": plan.predictor,
+    }
+    if plan.eb_policy:
+        header["eb_policy"] = plan.eb_policy
+    header.update({
         "sl_backend": plan.sl_backend,
         "shape": [int(T), int(H), int(W)],
         "scale": float(plan.scale),
@@ -368,22 +403,26 @@ def field_header(plan: PipelinePlan, shape) -> dict:
         "d_max": float(plan.d_max),
         "n_max": int(plan.n_max),
         "eb_abs": float(plan.eb_abs),
-    }
+    })
+    return header
 
 
 def pack_field(ex: PlanExecutor, u, v, enc: FieldEncode, t0: float):
     """Symbolize + pack + stats for a full-field encode."""
     p = ex.plan
     lossless_np = enc.lossless.cpu().numpy()
-    if p.codec == "device":
-        sections = entropy.field_sections_device(
-            enc.res_u, enc.res_v, lossless_np, u[lossless_np],
-            v[lossless_np], enc.bm)
-    else:
-        sections = encode.field_sections(
-            enc.res_u.cpu().numpy(), enc.res_v.cpu().numpy(), lossless_np,
-            u[lossless_np], v[lossless_np], enc.bm)
-    blob = encode.pack(field_header(p, u.shape), sections, p.zstd_level)
+    with obs.span("pipeline.symbolize", codec=p.codec):
+        if p.codec == "device":
+            sections = entropy.field_sections_device(
+                enc.res_u, enc.res_v, lossless_np, u[lossless_np],
+                v[lossless_np], enc.bm)
+        else:
+            sections = encode.field_sections(
+                enc.res_u.cpu().numpy(), enc.res_v.cpu().numpy(),
+                lossless_np, u[lossless_np], v[lossless_np], enc.bm)
+    with obs.span("pipeline.pack") as ps:
+        blob = encode.pack(field_header(p, u.shape), sections, p.zstd_level)
+        ps.set(bytes=len(blob))
     t1 = time.perf_counter()
     orig_bytes = u.nbytes + v.nbytes
     stats = {

@@ -358,3 +358,37 @@ def test_card_blob_equals_cpu_blob(dev, codec):
     for a, b in zip(repro_torch.decompress(b_dev, device=dev),
                     repro_torch.decompress(b_dev, device="cpu")):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("codec", ["host", "device"])
+def test_card_adaptive_blob_equals_cpu_blob(dev, codec):
+    from repro_torch.core import ebpolicy, encode
+
+    u, v = synthetic.vortex_street(T=6, H=48, W=64)
+    pol = ebpolicy.TilePolicy.make(
+        2, 12, 16, default=4e-2, values={(0, 1, 1): 1e-2, (1, 2, 3): 5e-3})
+    cfg = repro_torch.CompressionConfig(
+        eb=1e-2, dt=0.05, dx=2.0 / 63, dy=1.0 / 47, codec=codec,
+        eb_policy=pol, n_levels=ebpolicy.levels_for(pol))
+    b_dev, _ = repro_torch.compress(u, v, cfg, device=dev)
+    b_cpu, _ = repro_torch.compress(u, v, cfg, device="cpu")
+    assert b_dev == b_cpu
+    assert encode.unpack(b_dev)[0]["version"] == 3
+    for a, b in zip(repro_torch.decompress(b_dev, device=dev),
+                    repro_torch.decompress(b_dev, device="cpu")):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("codec", ["host", "device"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_card_nonfinite_blob_equals_cpu_blob(dev, bad, codec):
+    u, v = synthetic.vortex_street(T=4, H=20, W=24)
+    u = u.copy()
+    u.flat[37] = bad
+    cfg = repro_torch.CompressionConfig(eb=1e-2, mode="abs", codec=codec)
+    with np.errstate(invalid="ignore"):
+        b_dev, _ = repro_torch.compress(u, v, cfg, device=dev)
+        b_cpu, _ = repro_torch.compress(u, v, cfg, device="cpu")
+    assert b_dev == b_cpu
+    ur, _ = repro_torch.decompress(b_dev, device=dev)
+    assert np.array_equal(ur.view(np.uint32), u.view(np.uint32))

@@ -79,8 +79,7 @@ def test_default_device_needs_cuda(no_cuda, field):
     (dict(codec="device", tiling=object()), NotImplementedError, "item 6"),
     (dict(codec="gzip"), ValueError, "codec"),
     (dict(fused=False), NotImplementedError, "item 4"),
-    (dict(eb_policy=("tile", 2, 4, 4, 0.01, ())), NotImplementedError,
-     "item 5"),
+    (dict(eb_policy=object()), TypeError, "eb_policy"),
 ])
 def test_unported_config_refused(field, kw, exc, match):
     u, v = field

@@ -53,6 +53,11 @@ def _cases():
     u, v = synthetic.vortex_street(T=6, H=48, W=64)
     cases["vortex48-mop"] = (u, v, dict(eb=1e-2, dt=0.05, dx=2.0 / 63,
                                         dy=1.0 / 47))
+    # non-default MoP blocks: 8 tiles both edges, 13 leaves partial
+    # blocks on both
+    for block in (8, 13):
+        cases[f"vortex48-mop-b{block}"] = (u, v, dict(
+            eb=1e-2, block=block, dt=0.05, dx=2.0 / 63, dy=1.0 / 47))
     cases["random-mop"] = _random_field() + (dict(eb=1e-2, predictor="mop"),)
     cases["verify-fixture"] = _large_magnitude_field() + (
         dict(eb=6.0, mode="abs", predictor="mop"),)
@@ -85,7 +90,7 @@ def test_container_byte_equal(runs, name):
     assert header["sl_backend"] == "numpy" and header["version"] == 2
     if name == "verify-fixture":
         assert ps["verify_rounds"] >= 1 and ps["verify_bad_counts"][0] > 0
-    if name in ("vortex48-mop", "random-mop"):
+    if name.startswith("vortex48-mop") or name == "random-mop":
         assert 0 < ps["sl_block_frac"] < 1
 
 
