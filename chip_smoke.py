@@ -25,14 +25,20 @@ Phases (any failure exits non-zero; nothing is caught):
               modes on the SCF analogue's first verify round, with a
               random delta, on all-zero / one-sign originals and on
               planes wider than a CTA's column block, and
-              the kept subset predicate face_crossed on random faces
+              the subset predicate face_crossed on random faces; the
+              unit-batched entries of the tiled path (lorenzo_residual_
+              units, verify_faces_units, sl_decode_units) on chunks of
+              1, 3 and 8 units of interior and edge signatures, blocks
+              16 and 13, K2 in screen and delta modes, K3 with per-unit
+              SL flags
 3. parity  -- compress on the card == compress on the CPU, byte for byte,
               with the host codec and with codec="device", on a
               vortex-street field and on a field whose verify rounds
               fire, with an adaptive TilePolicy (version 3 header with
               the policy) and on a field holding NaN, +Inf and -Inf
               (given back bitwise); card blobs decode equal on both
-              devices
+              devices; the same for tiled containers (version 4, 5 and
+              6, batch_units off, and the field whose verify rounds fire)
 4. main    -- compress -> decompress at full size with each codec: the
               SCF analogue vortex_street(T=120, H=100, W=225) and an
               archive field vortex_street(T=64, H=512, W=512), with the
@@ -53,10 +59,20 @@ Phases (any failure exits non-zero; nothing is caught):
               compress a codec at the SCF analogue with repro_torch.obs
               tracing on (the untraced bytes, the stage spans, run_report
               summing to the container)
-5. table   -- each kernel on the inputs the main path (device codec, SCF
-              analogue) gave it: equality with its plain version, time,
-              plain time, bound and, where one PyTorch call computes the
-              same function, that call's time
+4d. tiled  -- the same two fields through compress_tiled with
+              TileGrid(128, 128, 32), each codec, and the adaptive policy
+              at the SCF analogue with codec="device": tiled decode ==
+              monolithic decode bitwise, the bound, FC = 0, each kernel
+              launched once per signature chunk of a verify round or of
+              the final encode (not once per unit), ratio, seconds and
+              peak memory beside the monolithic run's, and a one-unit
+              decompress_region that reads one unit
+5. table   -- each kernel on the inputs its path gave it (the monolithic
+              kernels: device codec, SCF analogue; the unit-batched
+              entries and face_crossed: the tiled 64x512x512 device-codec
+              run): equality with its plain version, time, plain time,
+              bound and, where one PyTorch call computes the same
+              function, that call's time
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX
@@ -64,6 +80,7 @@ or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -103,6 +120,17 @@ SIZES = {
     # adaptive-policy runs: (shape, codecs)
     "adaptive": [((120, 100, 225), ("host", "device")),
                  ((64, 512, 512), ("device",))],
+    # unit-batched kernels: (extension, owned box (ot, oi, oj, To, Ho, Wo))
+    # of a TileGrid(128, 128, 32) unit inside a later window / the first
+    "units": {"interior": ((33, 130, 130), (1, 1, 1, 32, 128, 128)),
+              "edge": ((33, 129, 130), (0, 0, 1, 32, 128, 128))},
+    "unit_chunks": (1, 3, 8),
+    # tiled parity on the card and the CPU: (shape, grid)
+    "parity_tiled": ((8, 128, 192), (32, 48, 3)),
+    # tiled runs at full width: (shape, codecs), TileGrid(128, 128, 32)
+    "tiled": [((120, 100, 225), ("host", "device")),
+              ((64, 512, 512), ("host", "device"))],
+    "tile_grid": (128, 128, 32),
 }
 
 # the host codec's container bytes at the main sizes with zlib (the card's
@@ -124,7 +152,21 @@ KERNELS = [
     ("symbol_histogram", "entropy", "symbol_histogram",
      "src/repro_torch/csrc/entropy.cu",
      "src/repro/kernels/entropy/kernel.py:46"),
+    # the tiled path's unit-batched entries, and K2's face predicate (the
+    # track index's crossed tet faces)
+    ("lorenzo_residual_units", "lorenzo", "lorenzo_residual_units",
+     "src/repro_torch/csrc/lorenzo.cu", "src/repro/kernels/lorenzo/kernel.py:68"),
+    ("verify_faces_units", "cptest", "verify_faces_units",
+     "src/repro_torch/csrc/cptest.cu", "src/repro/kernels/cptest/kernel.py:102"),
+    ("sl_decode_units", "semilagrange", "sl_decode_units",
+     "src/repro_torch/csrc/semilagrange.cu",
+     "src/repro/kernels/semilagrange/kernel.py:106"),
+    ("face_crossed", "cptest", "face_crossed",
+     "src/repro_torch/csrc/cptest.cu", "src/repro/kernels/cptest/kernel.py:102"),
 ]
+# kernels only the tiled path launches (the monolithic path must not)
+TILED_ONLY = ("lorenzo_residual_units", "verify_faces_units",
+              "sl_decode_units", "face_crossed")
 
 
 def say(*parts):
@@ -149,13 +191,12 @@ def modules():
 
 def wrappers():
     """{name: the kernel wrapper function whose ``launches`` counts}, the
-    kernels of KERNELS, the per-frame stepper sl_step and the subset
-    predicate face_crossed, which the main path must not launch."""
+    kernels of KERNELS and the per-frame stepper sl_step, which no path
+    launches."""
     mods = modules()
     fns = {name: getattr(mods[mod][0], attr)
            for name, mod, attr, _, _ in KERNELS}
     fns["sl_step"] = mods["semilagrange"][0].sl_step
-    fns["face_crossed"] = mods["cptest"][0].face_crossed
     return fns
 
 
@@ -326,6 +367,74 @@ def phase_kernels(dev):
     say(f"K5 symbol_histogram == plain on (rows, n, offset) {SIZES['k5']} "
         "(random, small-symbol, all-0, all-255 and only->=4 rows; the "
         "workspace reused across them): bitwise")
+    unit_kernel_cases(dev, mods, rng)
+
+
+def unit_kernel_cases(dev, mods, rng):
+    """The unit-batched entries against their plain versions, bitwise, on
+    chunks of 1, 3 and 8 units of the tiled path's interior and edge
+    signatures: K1 at blocks 16 and 13, K2 screen and delta, K3 with SL
+    flags that differ between units."""
+    k1, r1 = mods["lorenzo"]
+    k2, r2 = mods["cptest"]
+    k3, r3 = mods["semilagrange"]
+    for kind, (ext, owned) in SIZES["units"].items():
+        for B in SIZES["unit_chunks"]:
+            for block in (16, 13):
+                ufp, vfp, k, ll = lorenzo_inputs((B,) + ext, 5, 2 ** 29, rng,
+                                                 dev)
+                n0 = k1.lorenzo_residual_units.launches
+                got = k1.lorenzo_residual_units(ufp, vfp, k, ll, 5, block,
+                                                owned)
+                torch.cuda.synchronize()
+                assert k1.lorenzo_residual_units.launches == n0 + 1
+                want = r1.lorenzo_residual_units(ufp, vfp, k, ll, 5, block,
+                                                 owned)
+                assert same(got, want), \
+                    f"K1 units differ: {kind} B={B} block={block}"
+            shape = (9,) + ext[1:]
+            fields = [wide_fields(shape, dev, seed=b) for b in range(B)]
+            ufp, vfp, ur, vr = (torch.stack([f[i] for f in fields])
+                                for i in range(4))
+            preds = [all_predicates(r2, ufp[b], vfp[b]) for b in range(B)]
+            st, sb = preds[0][:2]
+            s0 = torch.stack([p[2] for p in preds])
+            b0 = torch.stack([p[3] for p in preds])
+            g = torch.Generator(device=dev).manual_seed(B)
+            pre = torch.rand(ur.shape, generator=g, device=dev) < 0.05
+            counts = []
+            for d in (None, torch.rand(ur.shape, generator=g, device=dev)
+                      < 0.05):
+                got_f, want_f = pre.clone(), pre.clone()
+                n0 = k2.verify_faces_units.launches
+                got = k2.verify_faces_units(ur, vr, ufp, vfp, d, st, sb, s0,
+                                            b0, got_f)
+                torch.cuda.synchronize()
+                assert k2.verify_faces_units.launches == n0 + 1
+                want = r2.verify_faces_units(ur, vr, ufp, vfp, d, st, sb, s0,
+                                             b0, want_f)
+                assert int(got) == int(want) > 0 and same(got_f, want_f), \
+                    f"K2 units differ: {kind} B={B} delta={d is not None}"
+                counts.append(int(got))
+            To, Ho, Wo = owned[3:]
+            kinds = ("random", "none", "first", "runs", "all", "last")
+            parts = [decode_inputs(kinds[b % len(kinds)], (To, Ho, Wo), 16,
+                                   20 + b, dev) for b in range(B)]
+            args = tuple(torch.stack([p[i] for p in parts]) for i in range(6))
+            args += (16, 0.01, 0.05, 0.035, 2.0, 8)
+            n0 = k3.sl_decode_units.launches
+            got = k3.sl_decode_units(*args)
+            torch.cuda.synchronize()
+            assert k3.sl_decode_units.launches == n0 + 1
+            assert same(got, r3.sl_decode_units(*args)), \
+                f"K3 units differ: {kind} B={B}"
+            say(f"unit kernels {kind} B={B}: K1 lorenzo_residual_units "
+                f"(extension {ext}, owned {owned}, blocks 16 and 13), K2 "
+                f"verify_faces_units on {(B,) + shape} (screen / delta "
+                f"{counts} bad faces), K3 sl_decode_units on {(B, To, Ho, Wo)}"
+                f" ({k3.sl_decode_units.grid} CTAs, blockmaps "
+                f"{[kinds[b % len(kinds)] for b in range(B)]}) == plain: "
+                "bitwise")
 
 
 def verify_faces_check(k2, r2, args):
@@ -417,10 +526,10 @@ def verify_faces_cases(dev, k2, r2):
         f"random delta {n_wide}): bitwise")
 
 
-def wide_fields(shape, dev):
+def wide_fields(shape, dev, seed=0):
     """(ufp, vfp, ur_fp, vr_fp) on the card: values near zero with sign
     ties, a fifth of them large, reconstructions moved by -2..2."""
-    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + seed)
     o = torch.randint(-3, 4, (2,) + shape, generator=g, device=dev)
     big = torch.rand(o.shape, generator=g, device=dev) < 0.2
     o = torch.where(big, torch.randint(-(1 << 20), 1 << 20, o.shape,
@@ -549,6 +658,49 @@ def phase_parity(dev):
             f"bad counts {s_dev['verify_bad_counts']}); decode equal")
     parity_adaptive(dev, fields[0][1], fields[0][2])
     parity_nonfinite(dev, fields[0][1], fields[0][2])
+    parity_tiled(dev, fields[0][1], fields[0][2])
+
+
+def parity_tiled(dev, u, v):
+    """Tiled containers on the card == on the CPU: version 4 (host
+    codec), 5 (device codec), 6 (adaptive policy), batch_units off, and
+    the field whose verify rounds fire; decode equal on both devices."""
+    import repro_torch as rt
+    from repro_torch.core import ebpolicy, encode
+
+    (T, H, W), g = SIZES["parity_tiled"]
+    pol = ebpolicy.TilePolicy.make(**PARITY_POLICY)
+    meta = dict(eb=1e-3, **scf_meta(T, H, W))
+    big_u, big_v = large_magnitude_field()
+    cases = [("v4", u, v, dict(meta), g), ("v5", u, v,
+                                           dict(meta, codec="device"), g),
+             ("v6", u, v, dict(eb=5e-2, mode="abs", codec="device",
+                                eb_policy=pol,
+                                n_levels=ebpolicy.levels_for(pol)), g),
+             ("v4 batch_units=False", u, v, dict(meta, batch_units=False), g),
+             ("rounds firing", big_u, big_v, dict(eb=6.0, mode="abs"),
+              (4, 4, 2))]
+    for name, fu, fv, kw, grid in cases:
+        cfg = rt.CompressionConfig(**kw)
+        tg = rt.TileGrid(*grid)
+        b_dev, s_dev = rt.compress_tiled(fu, fv, cfg, tg, device=dev)
+        b_cpu, s_cpu = rt.compress_tiled(fu, fv, cfg, tg, device="cpu")
+        tag = f"parity tiled {name} {fu.shape} {tg}"
+        assert b_dev == b_cpu, f"{tag}: card and CPU blobs differ"
+        assert s_dev["verify_bad_counts"] == s_cpu["verify_bad_counts"]
+        assert s_dev["chunks"] == s_cpu["chunks"]
+        if name == "rounds firing":
+            assert s_dev["verify_rounds"] >= 1, "verify rounds did not fire"
+        version = encode.tiled_header(b_dev)["version"]
+        assert version == {"v5": 5, "v6": 6}.get(name[:2], 4), version
+        d_dev = rt.decompress(b_dev, device=dev)
+        d_cpu = rt.decompress(b_dev, device="cpu")
+        assert all(np.array_equal(a, b) for a, b in zip(d_dev, d_cpu))
+        say(f"{tag}: card blob == CPU blob ({len(b_dev)} B, version "
+            f"{version}, {s_dev['n_units']} units, chunks "
+            f"{json.dumps(s_dev['chunks'])}, verify rounds "
+            f"{s_dev['verify_rounds']} {s_dev['verify_bad_counts']}); decode "
+            "equal")
 
 
 # the adaptive policy of the reference's tests (tests/test_ebpolicy.py)
@@ -830,10 +982,13 @@ def check_run(tag, codec, run, u, v, dev, bound=None):
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
     assert stats["sl_block_frac"] > 0, "no SL block was selected"
     enc, dec = run["enc_counts"], run["dec_counts"]
-    path = [n for n, *_ in KERNELS
-            if codec == "device" or n != "symbol_histogram"]
+    path = [n for n, *_ in KERNELS if n not in TILED_ONLY
+            and (codec == "device" or n != "symbol_histogram")]
     for name in path:
         assert enc[name] + dec[name] > 0, f"{tag}: {name} not launched"
+    for name in TILED_ONLY:
+        assert enc[name] == dec[name] == 0, \
+            f"{tag}: {name} ran on the monolithic path"
     rounds = stats["verify_rounds"] + 1
     assert dec["sl_decode"] == 1 and enc["sl_decode"] == rounds, \
         f"{tag}: sl_decode launches {enc['sl_decode']} / " \
@@ -844,8 +999,6 @@ def check_run(tag, codec, run, u, v, dev, bound=None):
         and dec["verify_faces"] == 0, \
         f"{tag}: verify_faces launches {enc['verify_faces']}, " \
         f"expected {rounds} (one a verify round)"
-    assert enc["face_crossed"] == dec["face_crossed"] == 0, \
-        f"{tag}: the subset predicate ran on the main path"
     assert enc["sl_step_batched"] == rounds
     assert enc["lorenzo_residual"] == rounds \
         and dec["lorenzo_residual"] == 0, \
@@ -894,6 +1047,7 @@ def phase_main(dev):
                 say(f"{tag}: decode == the host codec's decode, bitwise")
             results.append({
                 "shape": (T, H, W), "codec": codec, "blob": blob,
+                "dec": run["dec"], "dec_s": run["dec_s"],
                 "ratio": run["stats"]["ratio"], "enc_s": run["enc_s"],
                 "peak_above": run["peak_above"],
                 "launches": {n: run["enc_counts"][n] + run["dec_counts"][n]
@@ -931,6 +1085,7 @@ def phase_adaptive(dev, main):
 
     fns = wrappers()
     eb = 1e-2
+    out = []
     for (T, H, W), codecs in SIZES["adaptive"]:
         u, v = synthetic.vortex_street(T=T, H=H, W=W)
         pol = adaptive_policy(T, H, W, eb)
@@ -956,6 +1111,12 @@ def phase_adaptive(dev, main):
                 f"{uni['peak_above']:.1f} MiB; the f64 bound tensor "
                 f"{mib:.1f} MiB (all rounds) and the int64 caps tensor "
                 f"{mib:.1f} MiB (until the clamp)")
+            out.append({"shape": (T, H, W), "codec": codec, "policy": pol,
+                        "cfg": cfg, "bound": bound, "dec": run["dec"],
+                        "ratio": run["stats"]["ratio"],
+                        "enc_s": run["enc_s"], "dec_s": run["dec_s"],
+                        "peak_above": run["peak_above"]})
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1004,6 +1165,219 @@ def phase_obs(dev, main):
             f"{json.dumps(rep['bytes_by_kind'])} == {len(blob)} B; achieved "
             f"{unit['achieved_bps']} bits/symbol, Shannon "
             f"{unit['shannon_bps']}")
+
+
+# ----------------------------------------------------------------------
+# phase 4d: tiled containers at full width
+# ----------------------------------------------------------------------
+
+def tiled_groups(shape, grid):
+    """(predicate groups, entropy groups) of a tiled compress: the track
+    index evaluates each window's units one launch per extension
+    geometry that owns tets, the device codec codes them one launch per
+    owned shape (core/tiling.py)."""
+    from repro_torch.core import tiling
+
+    T, H, W = shape
+    seg, ent = set(), set()
+    for s in tiling.plan(shape, grid):
+        own = (min(s.t1, T - 1) - s.t0, min(s.i1, H - 1) - s.i0,
+               min(s.j1, W - 1) - s.j0)
+        if min(own) > 0:
+            seg.add((s.wi,) + s.ext_shape + s.owned[:3] + own)
+        ent.add((s.wi,) + s.owned_shape)
+    return len(seg), len(ent)
+
+
+def check_tiled_launches(tag, codec, stats, enc, dec, groups):
+    """One launch per signature chunk, per kernel: a chunk of several
+    units through the unit-batched entries (K1, K4, K3 where a unit has
+    SL blocks, K2), a lone unit through the whole-field ones (K1 twice:
+    X over the extension, residuals over the owned box)."""
+    v, e = stats["chunks"]["verify"], stats["chunks"]["emit"]
+    n_seg, n_ent = groups
+    want = {
+        "lorenzo_residual_units": v["multi"] + e["multi"],
+        "lorenzo_residual": 2 * (v["single"] + e["single"]),
+        "sl_step_batched": v["multi"] + v["single"] + e["multi"]
+        + e["single"],
+        "sl_decode_units": v["sl_multi"],
+        "sl_decode": v["sl_single"],
+        "verify_faces_units": v["multi"],
+        "verify_faces": v["single"],
+        "face_crossed": n_seg,
+        "symbol_histogram": n_ent if codec == "device" else 0,
+        "sl_step": 0,
+        "dual_quantize": 0,
+    }
+    got = {k: enc[k] for k in want}
+    assert got == want, f"{tag}: launches {got}, expected {want}"
+    units = stats["n_units"] * (stats["verify_rounds"] + 1)
+    assert v["multi"] > 0 and v["multi"] + v["single"] < units, \
+        f"{tag}: {v['multi'] + v['single']} verify chunks for {units} " \
+        "unit rounds"
+    assert all(dec[k] == 0 for k in want if k in dec and k != "sl_decode") \
+        and 0 < dec["sl_decode"] <= stats["n_units"], \
+        f"{tag}: decompress launches {dec}"
+
+
+def phase_tiled(dev, main, adaptive):
+    """compress_tiled -> decompress at full width with TileGrid(128, 128,
+    32): the SCF analogue and 64x512x512 with each codec, and the
+    adaptive policy at the SCF analogue with codec="device".  Returns
+    the 64x512x512 device-codec run (phase 5's unit-kernel inputs)."""
+    import repro_torch as rt
+    from repro_torch.analysis import query
+    from repro_torch.data import synthetic
+
+    fns = wrappers()
+    grid = rt.TileGrid(*SIZES["tile_grid"])
+    table_run = None
+    cases = [(shape, codec, None) for shape, codecs in SIZES["tiled"]
+             for codec in codecs]
+    ad = next(a for a in adaptive if a["shape"] == SIZES["main"][0]
+              and a["codec"] == "device")
+    cases.append((ad["shape"], "device", ad))
+    fields = {}
+    for (T, H, W), codec, pol_run in cases:
+        if (T, H, W) not in fields:
+            fields[(T, H, W)] = synthetic.vortex_street(T=T, H=H, W=W)
+        u, v = fields[(T, H, W)]
+        if pol_run is None:
+            tag = f"tiled {T}x{H}x{W} codec={codec}"
+            cfg = rt.CompressionConfig(codec=codec, tiling=grid,
+                                       **scf_meta(T, H, W))
+            mono = next(r for r in main if r["shape"] == (T, H, W)
+                        and r["codec"] == codec)
+        else:
+            tag = f"tiled adaptive {T}x{H}x{W} codec={codec}"
+            cfg = dataclasses.replace(pol_run["cfg"], tiling=grid)
+            mono = pol_run
+        run = run_tiled(dev, tag, u, v, cfg, fns)
+        stats, blob, (ur, vr) = run["stats"], run["blob"], run["dec"]
+        check_tiled_launches(tag, codec, stats, run["enc_counts"],
+                             run["dec_counts"], tiled_groups((T, H, W), grid))
+        assert np.array_equal(ur, mono["dec"][0]) \
+            and np.array_equal(vr, mono["dec"][1]), \
+            f"{tag}: tiled decode differs from the monolithic decode"
+        check_guarantees(tag, u, v, ur, vr, stats, dev,
+                         None if pol_run is None else pol_run["bound"])
+        src = query.ContainerSource(blob)
+        src.header()
+        reads = src.reads
+        region = (T // 2, T // 2 + 1, 1, 2, 1, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ru, rv = rt.decompress_region(src, region, device=dev)
+        region_s = time.perf_counter() - t0
+        assert src.reads - reads == 1 and len(rt.read_plan(blob, region)) == 1
+        assert ru[0, 0, 0] == ur[region[0], 1, 1]
+        say(f"{tag}: ratio {stats['ratio']:.4f} (monolithic "
+            f"{mono['ratio']:.4f}), {len(blob)} B, {stats['n_units']} units, "
+            f"verify rounds {stats['verify_rounds']} "
+            f"{stats['verify_bad_counts']}, chunks "
+            f"{json.dumps(stats['chunks'])}; tiled decode == monolithic "
+            f"decode, bitwise")
+        say(f"{tag}: encode {run['enc_s']:.3f} s (monolithic "
+            f"{mono['enc_s']:.3f} s), decode {run['dec_s']:.3f} s "
+            f"(monolithic {mono['dec_s']:.3f} s), second call, host clock; "
+            f"peak device memory {run['peak_above']:.1f} MiB above the held "
+            f"(monolithic {mono['peak_above']:.1f} MiB); decompress_region "
+            f"{region} read 1 unit in {region_s:.4f} s")
+        if (T, H, W) == SIZES["tiled"][-1][0] and codec == "device" \
+                and pol_run is None:
+            table_run = run
+    return table_run
+
+
+def check_guarantees(tag, u, v, ur, vr, stats, dev, bound=None):
+    """Finite output of the field's shape, the pointwise bound (scalar or
+    per-vertex) and FC_t = FC_s = 0."""
+    from repro_torch.core import trajectory
+
+    assert ur.shape == u.shape and np.isfinite(ur).all() \
+        and np.isfinite(vr).all()
+    err = np.maximum(np.abs(ur.astype(np.float64) - u),
+                     np.abs(vr.astype(np.float64) - v))
+    lim = stats["eb_abs"] if bound is None else bound
+    assert (err <= lim).all(), f"{tag}: pointwise bound violated"
+    fc = trajectory.false_cases(u, v, ur, vr, stats["scale"], dev)
+    assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"{tag}: false cases {fc}"
+    say(f"{tag}: max err / bound {float((err / lim).max())!r}, FC_t "
+        f"{fc['FC_t']} FC_s {fc['FC_s']} (CP_t {fc['CP_t_orig']})")
+
+
+class TiledClock(StageClock):
+    """Host-clock seconds per stage of one tiled compress -> decompress
+    (each stage synchronized on both sides; the verify chunks hold their
+    encode, and unit_payloads its encode and track-index segments)."""
+
+    STAGES = [
+        ("derive_window", "repro_torch.core.tiling", "_derive_window"),
+        ("verify_chunk", "repro_torch.core.tiling", "_round_chunk"),
+        ("encode_chunk", "repro_torch.core.tiling", "_encode_chunk"),
+        ("index_segments", "repro_torch.core.tiling",
+         "_window_segment_records"),
+        ("unit_payloads", "repro_torch.core.tiling", "_unit_payloads"),
+        ("entropy_fragments", "repro_torch.core.tiling",
+         "_attach_entropy_fragments"),
+        ("write_unit", "repro_torch.core.tiling", "_write_unit"),
+        ("finish_header", "repro_torch.core.tiling", "_finish_header"),
+        ("decode_units", "repro_torch.analysis.query",
+         "fetch_decoded_units"),
+    ]
+
+
+def run_tiled(dev, tag, u, v, cfg, fns):
+    """One field through compress -> decompress with tiling on the card:
+    a recorded run with launch counts (the kernel inputs kept for phase
+    5), then a second, uninstrumented run for host-clock seconds and
+    peak memory."""
+    import repro_torch as rt
+
+    with Recorder() as rec, CallCount("repro_torch.core.quantize",
+                                      "dual_quantize") as dq:
+        reset_counts(fns)
+        dq.calls = 0
+        blob, stats = rt.compress(u, v, cfg, device=dev)
+        enc_counts = read_counts(fns)
+        enc_counts["dual_quantize"] = dq.calls
+        reset_counts(fns)
+        ur, vr = rt.decompress(blob, device=dev)
+        dec_counts = read_counts(fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    blob2, _ = rt.compress(u, v, cfg, device=dev)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ur2, vr2 = rt.decompress(blob2, device=dev)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert blob2 == blob and np.array_equal(ur2, ur) \
+        and np.array_equal(vr2, vr), f"{tag}: runs differ"
+    with TiledClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob3, _ = rt.compress(u, v, cfg, device=dev)
+        traced_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.decompress(blob3, device=dev)
+        traced_dec = time.perf_counter() - t0
+    say(f"{tag}: traced run encode {traced_enc:.3f} s, decode "
+        f"{traced_dec:.3f} s; stage seconds "
+        f"{json.dumps({k: round(x, 4) for k, x in clock.seconds.items()})}")
+    say(f"{tag}: launches compress {json.dumps(enc_counts)}, decompress "
+        f"{json.dumps(dec_counts)}")
+    return {"blob": blob, "stats": stats, "dec": (ur, vr),
+            "enc_counts": enc_counts, "dec_counts": dec_counts,
+            "inputs": rec.inputs, "peak_above": (peak - held) / 2 ** 20,
+            "enc_s": enc_s, "dec_s": dec_s,
+            "launches": {n: enc_counts[n] + dec_counts[n]
+                         for n in dec_counts}}
 
 
 def run_main(dev, tag, u, v, cfg, fns):
@@ -1072,7 +1446,7 @@ def run_main(dev, tag, u, v, cfg, fns):
     return {"blob": blob, "stats": stats, "dec": (ur, vr),
             "enc_counts": enc_counts, "dec_counts": dec_counts,
             "inputs": rec.inputs, "peak_above": (peak - held) / 2 ** 20,
-            "enc_s": enc_s}
+            "enc_s": enc_s, "dec_s": dec_s}
 
 
 # ----------------------------------------------------------------------
@@ -1126,6 +1500,34 @@ def bound_terms(name, args, out):
         # want_x) written
         ufp, want_x = args[0], args[6]
         return ufp.numel() * (16 + 4 + 1 + 16 + (16 if want_x else 0)), 0
+    if name == "lorenzo_residual_units":
+        # the extensions' ufp, vfp, k, lossless read and X written; the
+        # owned boxes' residuals written
+        ufp, owned = args[0], args[6]
+        n_owned = ufp.shape[0] * owned[3] * owned[4] * owned[5]
+        return ufp.numel() * (16 + 4 + 1 + 16) + n_owned * 16, 0
+    if name == "face_crossed":
+        # the faces' ids read and their bits written; the values of the
+        # vertices they name read once
+        u, verts = args[0], args[2]
+        n_v = int(torch.unique(verts).numel())
+        return verts.numel() * 8 + verts.shape[0] + n_v * 16, 0
+    if name == "verify_faces_units":
+        # verify_faces' terms summed over the units, the tables once
+        st, sb = args[5], args[6]
+        per = [bound_terms("verify_faces", unit_args(args, b), out_b)[0]
+               - (st.numel() + sb.numel()) * 8
+               for b, out_b in enumerate(unit_bad(args))]
+        return sum(per) + (st.numel() + sb.numel()) * 8, 0
+    if name == "sl_decode_units":
+        bm, flags = args[4], args[5]
+        ops = 0.0
+        for b in range(args[0].shape[0]):
+            xu, xv = decode_sl_pixels(
+                tuple(a[b] for a in args[:6]) + args[6:],
+                (out[0][b], out[1][b]))
+            ops += sl_ops_count(xu, xv, *args[7:])
+        return args[0].numel() * 32 + bm.numel() + flags.numel(), ops
     if name == "verify_faces":
         # screen: the four int64 vertex arrays; incremental: delta and
         # (ur, vr) at the vertices of the selected faces; both: the two
@@ -1157,6 +1559,21 @@ def bound_terms(name, args, out):
     return args[0].numel() * 32, sl_ops_count(*args)
 
 
+def unit_args(args, b):
+    """verify_faces_units' arguments -> verify_faces' of unit b."""
+    return tuple(None if a is None else a[b] if i not in (5, 6) else a
+                 for i, a in enumerate(args))
+
+
+def unit_bad(args):
+    """Each unit's bad faces on verify_faces_units' inputs (plain)."""
+    from repro_torch.kernels.cptest import ref
+
+    *rest, forced = args
+    return [ref.verify_faces(*unit_args(tuple(rest) + (forced.clone(),), b))
+            for b in range(args[0].shape[0])]
+
+
 def selected_faces(args):
     """(N, 3) global vertex ids of the faces verify_faces re-checks on
     these inputs (the plain version's selection)."""
@@ -1182,18 +1599,19 @@ def library_call(name, args):
     return lambda: torch.bincount(keys, minlength=B * 256)
 
 
-def phase_table(main):
+def phase_table(main, tiled_run):
     mods = modules()
-    run = next(r for r in main
-               if r["shape"] == SIZES["main"][0] and r["codec"] == "device")
+    mono = next(r for r in main
+                if r["shape"] == SIZES["main"][0] and r["codec"] == "device")
     rows = []
     for name, mod, attr, src, replaces in KERNELS:
         kmod, rmod = mods[mod]
+        run = tiled_run if name in TILED_ONLY else mono
         args = run["inputs"][name]
         kern = getattr(kmod, attr)
         plain = getattr(rmod, attr)
         saved = kern.launches
-        if name == "verify_faces":
+        if name in ("verify_faces", "verify_faces_units"):
             # forced is updated in place: each version gets its own copy,
             # and the mask is compared beside the count
             *rest, forced = args
@@ -1234,11 +1652,17 @@ def phase_table(main):
                         f"{sl_branches(xu, xv, *args[7:])})")
         if name == "sl_step_batched":
             lib_txt += f" ({sl_branches(*args)})"
-        if name == "verify_faces":
+        if name == "sl_decode_units":
+            lib_txt += (f", {int(args[5][:, 1:].any(0).sum())} grid barriers "
+                        f"of {kern.grid} CTAs, units {args[0].shape[0]}")
+        if name in ("verify_faces", "verify_faces_units"):
             n_faces = (args[7].numel() + args[8].numel())
-            lib_txt += (f", {n_faces} faces, {selected_faces(args).shape[0]} "
-                        f"selected ({'screen' if args[4] is None else 'delta'}"
-                        f"), {int(want)} bad")
+            n_sel = (selected_faces(args).shape[0] if name == "verify_faces"
+                     else sum(selected_faces(unit_args(args, b)).shape[0]
+                              for b in range(args[0].shape[0])))
+            lib_txt += (f", {n_faces} faces, {n_sel} selected "
+                        f"({'screen' if args[4] is None else 'delta'}), "
+                        f"{int(want)} bad")
         say(f"table {name}: main-path inputs {shapes}, kernel {ms:.5f} ms "
             f"({how}), {call_ms:.5f} ms per call "
             f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per "
@@ -1277,9 +1701,10 @@ def main() -> int:
     phase_kernels(dev)
     phase_parity(dev)
     main_runs = phase_main(dev)
-    phase_adaptive(dev, main_runs)
+    adaptive_runs = phase_adaptive(dev, main_runs)
     phase_obs(dev, main_runs)
-    rows = phase_table(main_runs)
+    tiled_run = phase_tiled(dev, main_runs, adaptive_runs)
+    rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi_line())

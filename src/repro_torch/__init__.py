@@ -2,6 +2,8 @@
 
     blob, stats = repro_torch.compress(u, v, CompressionConfig(eb=...))
     u_rec, v_rec = repro_torch.decompress(blob)
+    blob, stats = repro_torch.compress_tiled(u, v, cfg, TileGrid(...))
+    u_reg, v_reg = repro_torch.decompress_region(blob, region)
 
 Both entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.  On a CUDA tensor the three hot ops launch the
@@ -12,3 +14,10 @@ packages in both directions.
 """
 from .core.compressor import CompressionConfig, compress, decompress  # noqa: F401
 from .core.ebpolicy import DegenerateRangeError  # noqa: F401
+from .core.tiling import (  # noqa: F401
+    TileGrid,
+    compress_tiled,
+    decompress_region,
+    decompress_tiled,
+    read_plan,
+)

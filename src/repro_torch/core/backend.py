@@ -17,6 +17,12 @@ Determinism contract:
   batched (K4) kernels share one device function, so decoding a field
   in one launch and predicting the encoder's T-1 frames in one batched
   call change no integer.
+
+The ``*_units`` ops take a stack of same-signature tile units (the
+tiled pipeline, core/tiling.py) and launch one kernel for the whole
+stack; each unit's result equals the single-field op on that unit.
+``connected_labels`` (the track index's stitching) is exact torch ops:
+the JAX package has no kernel for it.
 """
 from __future__ import annotations
 
@@ -105,3 +111,114 @@ def symbol_histogram(sym):
     """Per-row 256-bin histogram of a (B, n) uint8 symbol stack.  Returns
     (B, 256) int32 exact counts."""
     return _ent_ops.symbol_histogram(sym.contiguous())
+
+
+# ----------------------------------------------------------------------
+# unit-batched ops (tile units stacked on a leading axis)
+# ----------------------------------------------------------------------
+
+def lorenzo_residual_units(ufp, vfp, k, lossless, xi_unit: int, block: int,
+                           owned):
+    """K1 over B same-signature units (one launch on CUDA): ufp, vfp
+    (B, Te, He, We) int64 extensions, k int32, lossless bool; owned =
+    (ot, oi, oj, To, Ho, Wo).  Returns (res_u, res_v) (B, To, Ho, Wo)
+    over the owned boxes and (xu, xv) (B, Te, He, We) over the
+    extensions."""
+    return _lz_ops.lorenzo_residual_units(
+        ufp.contiguous(), vfp.contiguous(), k.to(torch.int32).contiguous(),
+        lossless.contiguous(), xi_unit, block, owned)
+
+
+def sl_predictions_units(xu, xv, g2f: float, cfl_x: float, cfl_y: float,
+                         d_max: float, n_max: int):
+    """Encoder-side predictions of frames 1..T-1 of B (B, T, H, W) units,
+    all B (T-1) frames in one stepper call (K4).  Returns (B, T-1, H, W)
+    int64 stacks."""
+    B, T, H, W = xu.shape
+    pu, pv = _sl_ops.sl_step_batched(
+        xu[:, :-1].reshape(B * (T - 1), H, W).contiguous(),
+        xv[:, :-1].reshape(B * (T - 1), H, W).contiguous(), g2f, cfl_x,
+        cfl_y, d_max, n_max)
+    return pu.reshape(B, T - 1, H, W), pv.reshape(B, T - 1, H, W)
+
+
+def sl_decode_units(res_u, res_v, blockmaps, block: int, g2f: float,
+                    cfl_x: float, cfl_y: float, d_max: float, n_max: int):
+    """``sl_decode`` of B (B, T, H, W) units with their HOST blockmaps
+    (B, T, nbi, nbj): one prefix sum over time when no unit has an SL
+    block past its frame 0, else one ``sl_decode_units`` call (one
+    cooperative launch on CUDA) with per-unit frame flags."""
+    bm = np.asarray(blockmaps)
+    B, T, H, W = res_u.shape
+    c2u = predictors.c2_block(res_u, block)
+    c2v = predictors.c2_block(res_v, block)
+    flags = bm.reshape(B, T, -1).any(axis=2)
+    flags[:, 0] = False                        # frame 0 is spatial-only
+    if not flags.any():
+        return torch.cumsum(c2u, dim=1), torch.cumsum(c2v, dim=1)
+    dev = res_u.device
+    return _sl_ops.sl_decode_units(
+        c2u.contiguous(), c2v.contiguous(), res_u.contiguous(),
+        res_v.contiguous(),
+        torch.as_tensor(bm.astype(np.uint8), device=dev).contiguous(),
+        torch.as_tensor(flags.astype(np.uint8), device=dev).contiguous(),
+        block, g2f, cfl_x, cfl_y, d_max, n_max)
+
+
+def verify_faces_units(ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab,
+                       slice0, slab0, forced):
+    """``verify_faces`` of B same-shape units (one K2 launch on CUDA):
+    (B, T, H, W) fields, delta and forced (updated in place), (B, T, Fs)
+    / (B, T-1, Fb) original predicates.  Returns the bad faces of all
+    units as a 0-d int64 tensor on the device."""
+    def c(t):
+        return None if t is None else t.contiguous()
+    return _cp_ops.verify_faces_units(c(ur_fp), c(vr_fp), c(ufp), c(vfp),
+                                      c(delta), c(slice_tab), c(slab_tab),
+                                      c(slice0), c(slab0), forced)
+
+
+def face_crossed(u_flat, v_flat, verts):
+    """SoS predicate of the faces ``verts`` (N, 3) int64 ids into the
+    flat int64 values (one K2 ``face_crossed`` launch on CUDA).  Returns
+    (N,) bool."""
+    return _cp_ops.face_crossed(u_flat.contiguous(), v_flat.contiguous(),
+                                verts.contiguous())
+
+
+# ----------------------------------------------------------------------
+# connected-component labeling (track stitching)
+# ----------------------------------------------------------------------
+
+_CCL_MAX_ROUNDS = 64
+
+
+def connected_labels(n: int, edges):
+    """Connected components of an undirected graph on nodes [0, n):
+    edges (E, 2) int64 tensor.  Returns int64 labels on the edges'
+    device with label[i] = the minimum node id of i's component, by
+    iterated min-hooking (a scatter-min of each edge's smaller parent
+    into its larger) and pointer jumping to a fixpoint -- exact, so equal
+    to the JAX package's labels for any edge order."""
+    dev = edges.device
+    if n == 0:
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    parent = torch.arange(n, dtype=torch.int64, device=dev)
+    if edges.numel() == 0:
+        return parent
+    ea = edges[:, 0].to(torch.int64)
+    eb = edges[:, 1].to(torch.int64)
+    for _ in range(_CCL_MAX_ROUNDS):
+        pa, pb = parent[ea], parent[eb]
+        nxt = parent.scatter_reduce(0, torch.maximum(pa, pb),
+                                    torch.minimum(pa, pb), reduce="amin")
+        while True:
+            jumped = nxt[nxt]
+            if torch.equal(jumped, nxt):
+                break
+            nxt = jumped
+        if torch.equal(nxt, parent):
+            return parent
+        parent = nxt
+    raise RuntimeError("connected_labels did not converge "
+                       f"in {_CCL_MAX_ROUNDS} rounds")

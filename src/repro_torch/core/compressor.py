@@ -21,6 +21,11 @@ policy's loosest bound, each vertex's bound is clamped down to its own,
 and the container is the reference's version 3 with the policy in its
 header.  Pair a policy with ``n_levels=ebpolicy.levels_for(policy)``.
 
+``tiling=TileGrid(...)`` compresses tile by tile into the reference's
+random-access CPTT1 container (core/tiling.py: version 4, 5 with the
+device codec, 6 with an adaptive policy, the track index in its footer
+unless ``track_index=False``); ``decompress`` reads it too.
+
 ``CompressionConfig`` keeps the JAX package's fields and defaults.  The
 options whose code paths are not ported raise NotImplementedError
 naming their ROADMAP item; ``backend`` must stay None (the device picks
@@ -58,7 +63,7 @@ class CompressionConfig:
     max_rounds: int = 12
     backend: Optional[str] = None     # must be None: the device decides
     fused: Optional[bool] = None      # None / True: the fused pipeline
-    tiling: Optional[object] = None   # tiled pipeline (not ported)
+    tiling: Optional[object] = None   # a tiling.TileGrid: tiled container
     track_index: bool = True          # tiled only
     batch_units: bool = True          # tiled only
     codec: str = "host"               # 'host' (CPTZ1/CPTL1) | 'device' (CPTH1)
@@ -85,7 +90,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _refuse_unported(cfg: CompressionConfig, autotune, target_ratio):
+def refuse_unported(cfg: CompressionConfig, autotune=False,
+                    target_ratio=None):
+    """Raise for the config options this package does not run."""
     if cfg.backend is not None:
         raise ValueError(
             f"backend={cfg.backend!r}: repro_torch has no backend names; "
@@ -99,10 +106,6 @@ def _refuse_unported(cfg: CompressionConfig, autotune, target_ratio):
         raise NotImplementedError(
             "autotune is not ported to repro_torch yet (ROADMAP Queue 1 "
             "item 11)")
-    if cfg.tiling is not None:
-        raise NotImplementedError(
-            "tiled compression is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 6)")
     if cfg.fused is False:
         raise NotImplementedError(
             "the legacy fused=False binding is not ported to repro_torch "
@@ -142,7 +145,10 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
     """Compress a (T, H, W) pair of float fields.  Returns (blob, stats)."""
     if cfg is None:
         cfg = CompressionConfig()
-    _refuse_unported(cfg, autotune, target_ratio)
+    refuse_unported(cfg, autotune, target_ratio)
+    if cfg.tiling is not None:
+        from . import tiling
+        return tiling.compress_tiled(u, v, cfg, cfg.tiling, device=device)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     u, v = _as_fields(u, v)
@@ -167,6 +173,9 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
 
 def decompress(blob: bytes, *, device=None):
     """Container bytes -> (u, v) float32 numpy arrays (T, H, W)."""
+    if encode.is_tiled(blob):
+        from . import tiling
+        return tiling.decompress_tiled(blob, device=device)
     dev = resolve_device(device)
     header, sections = encode.unpack(blob)
     version = header.get("version", 1)

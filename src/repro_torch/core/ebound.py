@@ -97,36 +97,60 @@ def derive_vertex_eb(ufp: torch.Tensor, vfp: torch.Tensor, tau: int):
     ufp, vfp: (T, H, W) int64.  Returns (eb (T, H, W) int64,
     slice_crossed (T, Fs) bool, slab_crossed (T-1, Fb) bool).
     """
-    T, H, W = ufp.shape
+    eb, slice_c, slab_c = derive_vertex_eb_units(ufp[None], vfp[None], tau)
+    return eb[0], slice_c[0], slab_c[0]
+
+
+def derive_vertex_eb_units(ufp: torch.Tensor, vfp: torch.Tensor, tau: int):
+    """``derive_vertex_eb`` of B same-shape fields (tile extensions)
+    stacked on a leading axis, their planes processed together.  Each
+    field keeps its own local vertex ids, so its results equal the
+    single-field call's.  Returns (eb (B, T, H, W), slice_crossed (B, T,
+    Fs), slab_crossed (B, T-1, Fb))."""
+    B, T, H, W = ufp.shape
     HW = H * W
     tabs = grid.device_tables(H, W, str(ufp.device))
-    u2 = ufp.reshape(T, HW)
-    v2 = vfp.reshape(T, HW)
-    tids = torch.arange(T, dtype=torch.int64, device=ufp.device) * HW
+    u2 = ufp.reshape(B * T, HW)
+    v2 = vfp.reshape(B * T, HW)
+    # plane p is frame p % T of its field
+    tids = (torch.arange(B * T, dtype=torch.int64, device=ufp.device) % T) \
+        * HW
 
     eb_parts, slice_parts = [], []
     step = max(1, _FACE_BUDGET // tabs["slice"].shape[0])
-    for lo in range(0, T, step):
-        hi = min(lo + step, T)
+    for lo in range(0, B * T, step):
+        hi = min(lo + step, B * T)
         eb, crossed = _faces_eb_update(u2[lo:hi], v2[lo:hi], tids[lo:hi],
                                        tabs["slice"], tau, tabs["slice_inc"])
         eb_parts.append(eb)
         slice_parts.append(crossed)
-    eb = torch.cat(eb_parts)
+    eb = torch.cat(eb_parts).reshape(B, T, HW)
 
+    # slab planes: (frame t, frame t+1) pairs inside each field, built a
+    # chunk at a time
+    u3 = ufp.reshape(B, T, HW)
+    v3 = vfp.reshape(B, T, HW)
+    n_slabs = B * (T - 1)
     slab_eb, slab_parts = [], []
     step = max(1, _FACE_BUDGET // tabs["slab"].shape[0])
-    for lo in range(0, T - 1, step):
-        hi = min(lo + step, T - 1)
-        pu = torch.cat([u2[lo:hi], u2[lo + 1:hi + 1]], dim=1)
-        pv = torch.cat([v2[lo:hi], v2[lo + 1:hi + 1]], dim=1)
-        e, crossed = _faces_eb_update(pu, pv, tids[lo:hi], tabs["slab"],
-                                      tau, tabs["slab_inc"])
-        slab_eb.append(e.reshape(hi - lo, 2, HW))
+    for lo in range(0, n_slabs, step):
+        s = torch.arange(lo, min(lo + step, n_slabs), device=ufp.device)
+        b, t = s // (T - 1), s % (T - 1)
+        pu = torch.cat([u3[b, t], u3[b, t + 1]], dim=1)
+        pv = torch.cat([v3[b, t], v3[b, t + 1]], dim=1)
+        e, crossed = _faces_eb_update(pu, pv, t * HW, tabs["slab"], tau,
+                                      tabs["slab_inc"])
+        slab_eb.append(e.reshape(len(s), 2, HW))
         slab_parts.append(crossed)
-    eb_slab2 = torch.cat(slab_eb)
-    # slab [t, t+1] bounds its plane-0 vertices at time t and its
-    # plane-1 vertices at time t+1
-    eb[:-1] = torch.minimum(eb[:-1], eb_slab2[:, 0])
-    eb[1:] = torch.minimum(eb[1:], eb_slab2[:, 1])
-    return eb.reshape(T, H, W), torch.cat(slice_parts), torch.cat(slab_parts)
+    if slab_eb:
+        eb_slab2 = torch.cat(slab_eb).reshape(B, T - 1, 2, HW)
+        # slab [t, t+1] bounds its plane-0 vertices at time t and its
+        # plane-1 vertices at time t+1
+        eb[:, :-1] = torch.minimum(eb[:, :-1], eb_slab2[:, :, 0])
+        eb[:, 1:] = torch.minimum(eb[:, 1:], eb_slab2[:, :, 1])
+        slab_c = torch.cat(slab_parts).reshape(B, T - 1, -1)
+    else:
+        slab_c = torch.zeros((B, 0, tabs["slab"].shape[0]), dtype=torch.bool,
+                             device=ufp.device)
+    return (eb.reshape(B, T, H, W), torch.cat(slice_parts).reshape(B, T, -1),
+            slab_c)

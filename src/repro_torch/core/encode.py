@@ -1,5 +1,5 @@
-"""The monolithic containers (the JAX package's CPTZ1 / CPTL1 / CPTH1
-formats).
+"""The containers of the JAX package: monolithic CPTZ1 / CPTL1 / CPTH1
+frames and the tiled CPTT1 container of unit frames.
 
 Residual symbols are zigzag-folded and escape-coded into a uint8 stream
 (values >= 255 escape to an int64 side list).  A host-codec container is
@@ -17,6 +17,18 @@ shrinks them.  It uses no zstd, so its bytes do not depend on the host.
 The header is written by ``_msgpack`` (byte-equal to
 ``msgpack.packb(..., use_bin_type=True)``).  Every integrity failure on
 the read path raises :class:`ContainerError`.
+
+A tiled container (``TiledWriter``, format versions 4-6) is
+
+    CPTT1 | "CPPR" u32 len u32 crc | prologue frame
+          | "CPUN" u32 len u32 crc | unit frame          (repeated)
+          | zlib(msgpack footer) | u32 footer length | CPTT1
+
+where every frame is a self-describing monolithic frame and the footer
+holds the global decode parameters, the unit directory (key, owned box,
+offset, length, CRC32 of each frame) and optionally the track index
+under ``TRACK_INDEX_KEY``.  Version-3 containers (no preambles, no
+CRCs) read the same way: the reader follows the directory only.
 """
 from __future__ import annotations
 
@@ -35,13 +47,27 @@ except ImportError:  # the zlib container is the fallback
 
 MAGIC = b"CPTZ1"          # zstd-backed container
 MAGIC_ZLIB = b"CPTL1"     # zlib fallback container (same layout inside)
-MAGIC_TILED = b"CPTT1"    # tiled container (not ported)
+MAGIC_TILED = b"CPTT1"    # tiled container (unit frames + footer)
 MAGIC_HUF = b"CPTH1"      # device-entropy container (raw payload)
 ESC = 255
 
 
 class ContainerError(ValueError):
     """Malformed, truncated, or corrupted container bytes."""
+
+
+class ChecksumError(ContainerError):
+    """A unit frame's bytes do not match the CRC of its directory entry
+    (bit rot or a torn write)."""
+
+
+# the footer names the algorithm of the directory's per-unit checksums
+CHECKSUM_ALGO = "crc32"
+
+
+def frame_crc(frame: bytes) -> int:
+    """CRC32 of one container frame."""
+    return zlib.crc32(frame) & 0xFFFFFFFF
 
 
 def backend_codec() -> str:
@@ -388,9 +414,10 @@ def unpack(blob: bytes):
     """Container bytes -> (header dict, {name: numpy array})."""
     magic = bytes(blob[: len(MAGIC)])
     if magic == MAGIC_TILED:
-        raise NotImplementedError(
-            "CPTT1 (tiled) containers are not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 6)")
+        raise ContainerError(
+            "CPTT1 is a tiled container of unit frames: read it with "
+            "repro_torch.decompress (core/tiling.py::decompress_tiled) or "
+            "tiled_header / read_tiled_unit")
     if magic == MAGIC_HUF:
         return _parse_payload(bytes(blob[len(MAGIC_HUF):]))
     if magic not in (MAGIC, MAGIC_ZLIB):
@@ -439,3 +466,225 @@ def _parse_payload(payload: bytes):
                 f"malformed section entry {name!r}: missing dtype/shape")
         sections[name] = _decode_section(name, meta, payload[lo:hi])
     return header, sections
+
+
+# ----------------------------------------------------------------------
+# tiled container (CPTT1)
+# ----------------------------------------------------------------------
+
+TRACK_INDEX_KEY = "track_index"
+
+UNIT_MARK = b"CPUN"       # per-unit frame preamble mark (version >= 4)
+PROLOGUE_MARK = b"CPPR"   # prologue frame preamble mark (version >= 4)
+_PREAMBLE = struct.Struct("<II")          # (frame_len, frame_crc)
+PREAMBLE_LEN = len(UNIT_MARK) + _PREAMBLE.size
+
+
+def _preamble(mark: bytes, frame: bytes) -> bytes:
+    return mark + _PREAMBLE.pack(len(frame), frame_crc(frame))
+
+
+def pack_ndarray(arr) -> dict:
+    """msgpack-able {dtype, shape, data} triple of a numpy array."""
+    arr = np.ascontiguousarray(arr)
+    return {"dtype": str(arr.dtype), "shape": [int(s) for s in arr.shape],
+            "data": arr.tobytes()}
+
+
+def unpack_ndarray(d: dict) -> np.ndarray:
+    return np.frombuffer(d["data"], dtype=np.dtype(d["dtype"])).reshape(
+        d["shape"])
+
+
+def is_tiled(blob: bytes) -> bool:
+    return bytes(blob[: len(MAGIC_TILED)]) == MAGIC_TILED
+
+
+class TiledWriter:
+    """Append-only tiled-container writer.  Writes to ``sink`` (anything
+    with ``write``) or, with ``sink=None``, to a buffer whose bytes
+    ``finish`` returns.  Units are written as they arrive."""
+
+    def __init__(self, sink=None, level: int = 12, prologue: dict = None):
+        self._own = sink is None
+        self._sink = io.BytesIO() if sink is None else sink
+        self._level = level
+        self._sink.write(MAGIC_TILED)
+        self._pos = len(MAGIC_TILED)
+        self.units = []
+        if prologue is not None:
+            frame = pack(dict(prologue), {}, self._level)
+            self._sink.write(_preamble(PROLOGUE_MARK, frame))
+            self._sink.write(frame)
+            self._pos += PREAMBLE_LEN + len(frame)
+
+    @classmethod
+    def resumed(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "resuming a tiled container (crash recovery of streaming "
+            "compression) is not ported to repro_torch yet (ROADMAP Queue "
+            "1 item 8)")
+
+    def add_unit(self, key, box, header: dict, sections: dict) -> None:
+        """Append one (window, tile) unit and its directory entry.  key:
+        (wi, ti, tj); box: the half-open owned (t0, t1, i0, i1, j0, j1)."""
+        header = dict(header)
+        header["key"] = [int(k) for k in key]
+        frame = pack(header, sections, self._level)
+        self._sink.write(_preamble(UNIT_MARK, frame))
+        self._pos += PREAMBLE_LEN
+        self.units.append({
+            "key": [int(k) for k in key],
+            "box": [int(b) for b in box],
+            "off": self._pos,
+            "len": len(frame),
+            "crc": frame_crc(frame),
+        })
+        self._sink.write(frame)
+        self._pos += len(frame)
+
+    def finish(self, header: dict):
+        """Write the directory footer; returns the blob when buffering."""
+        header = dict(header)
+        header["units"] = self.units
+        header.setdefault("checksum", CHECKSUM_ALGO)
+        hdr = zlib.compress(_msgpack.packb(header), 6)
+        self._sink.write(hdr)
+        self._sink.write(struct.pack("<I", len(hdr)))
+        self._sink.write(MAGIC_TILED)
+        self._pos += len(hdr) + 4 + len(MAGIC_TILED)
+        return self._sink.getvalue() if self._own else None
+
+    @property
+    def bytes_written(self) -> int:
+        return self._pos
+
+
+def tiled_footer_ranged(read, size: int):
+    """(footer dict, compressed footer bytes) through a range reader
+    ``read(off, ln) -> bytes`` over a container of ``size`` bytes."""
+    m = len(MAGIC_TILED)
+    if size < 2 * m + 4:
+        raise ContainerError(
+            f"truncated tiled container: {size} bytes is smaller than "
+            f"the minimal frame")
+    if read(0, m) != MAGIC_TILED:
+        raise ContainerError("not a CPTT tiled container (bad magic)")
+    tail = read(size - m - 4, m + 4)
+    if tail[-m:] != MAGIC_TILED:
+        raise ContainerError("truncated tiled container (no footer)")
+    (hlen,) = struct.unpack("<I", tail[:4])
+    if hlen + 2 * m + 4 > size:
+        raise ContainerError(
+            f"corrupt tiled footer: header length {hlen} exceeds "
+            f"{size}-byte container")
+    raw = read(size - m - 4 - hlen, hlen)
+    try:
+        header = _msgpack.unpackb(zlib.decompress(raw))
+    except (ValueError, UnicodeDecodeError, zlib.error) as e:
+        raise ContainerError(f"corrupt tiled footer: {e}") from e
+    if not isinstance(header, dict) or "units" not in header:
+        raise ContainerError("tiled footer has no unit directory")
+    units = header["units"]
+    if not isinstance(units, list) or any(
+            not isinstance(e, dict)
+            or not {"key", "box", "off", "len"} <= e.keys()
+            for e in units):
+        raise ContainerError("tiled footer unit directory is malformed")
+    for e in units:
+        off, ln = e["off"], e["len"]
+        if not (isinstance(off, int) and isinstance(ln, int)
+                and m <= off and 0 <= ln and off + ln <= size):
+            raise ContainerError(
+                f"unit directory entry {e['key']} byte range "
+                f"[{off}, {off + ln}) outside [{m}, {size})")
+    return header, raw
+
+
+def tiled_header(blob: bytes) -> dict:
+    """Directory footer of a tiled container (header dict with units)."""
+    return tiled_footer_ranged(lambda off, ln: blob[off: off + ln],
+                               len(blob))[0]
+
+
+def check_unit_frame(frame: bytes, entry: dict) -> None:
+    """Raise ChecksumError unless ``frame`` matches its entry's CRC (no
+    check for pre-v4 entries, which carry none)."""
+    want = entry.get("crc")
+    if want is None:
+        return
+    got = frame_crc(frame)
+    if got != int(want):
+        raise ChecksumError(
+            f"unit {entry.get('key')} checksum mismatch: stored "
+            f"{int(want):#010x}, frame bytes hash to {got:#010x} "
+            f"(bit rot or torn write)")
+
+
+def read_tiled_unit_ranged(read, entry: dict):
+    """Decode one unit frame through a range reader."""
+    frame = read(entry["off"], entry["len"])
+    if len(frame) != entry["len"]:
+        raise ContainerError(
+            f"short read: unit frame at [{entry['off']}, "
+            f"{entry['off'] + entry['len']}) returned {len(frame)} bytes "
+            f"(truncated container?)")
+    check_unit_frame(frame, entry)
+    return unpack(frame)
+
+
+def read_tiled_unit(blob: bytes, entry: dict):
+    """Decode one unit frame by directory entry (reads only its bytes)."""
+    return read_tiled_unit_ranged(lambda off, ln: blob[off: off + ln],
+                                  entry)
+
+
+def _scan_frames(data: bytes):
+    """Walk the frame preambles of a version >= 4 body.  Returns
+    (frames, n_dropped, legacy): one dict {"mark", "off", "len", "crc",
+    "header"} per frame whose CRC matches and whose header parses,
+    resynchronizing on the unit mark across damaged spans; legacy is
+    True when the body has no preamble at all (version <= 3)."""
+    m = len(MAGIC_TILED)
+    frames, n_dropped = [], 0
+    pos = m
+    if data[pos: pos + len(PROLOGUE_MARK)] not in (PROLOGUE_MARK, UNIT_MARK):
+        return frames, n_dropped, True
+    while True:
+        mark = data[pos: pos + 4]
+        if mark not in (PROLOGUE_MARK, UNIT_MARK):
+            nxt = data.find(UNIT_MARK, pos + 1)
+            if nxt < 0:
+                break
+            n_dropped += 1
+            pos = nxt
+            continue
+        body = pos + PREAMBLE_LEN
+        if body > len(data):
+            break                      # torn preamble at the end
+        ln, crc = _PREAMBLE.unpack(data[pos + 4: body])
+        frame = data[body: body + ln]
+        ok = len(frame) == ln and frame_crc(frame) == crc
+        header = None
+        if ok:
+            try:
+                header, _ = unpack(frame)
+            except ContainerError:
+                ok = False             # a mark inside a payload
+        if not ok:
+            nxt = data.find(UNIT_MARK, pos + 1)
+            if nxt < 0:
+                break
+            n_dropped += 1
+            pos = nxt
+            continue
+        frames.append({"mark": bytes(mark), "off": body, "len": ln,
+                       "crc": crc, "header": header})
+        pos = body + ln
+    return frames, n_dropped, False
+
+
+def salvage_container(*args, **kwargs):
+    raise NotImplementedError(
+        "salvaging a damaged tiled container is not ported to repro_torch "
+        "yet (ROADMAP Queue 1 item 8)")

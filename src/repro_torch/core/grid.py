@@ -165,3 +165,128 @@ def face_walk(H: int, W: int, device: str):
     dev = torch.device(device)
     return tuple(torch.as_tensor(a, device=dev)
                  for a in face_walk_table(H, W))
+
+
+# ----------------------------------------------------------------------
+# tetrahedra, global face ids, sub-box vertex ids (tiled containers and
+# the track index)
+# ----------------------------------------------------------------------
+#
+# Every face of the (T, H, W) mesh has one dense int64 id, interleaved
+# per time step so it never depends on T:
+#
+#     slice faces   t * (Fs + Fb) + f          t in [0, T)
+#     slab  faces   t * (Fs + Fb) + Fs + f     t in [0, T-1)
+#
+# with Fs = len(slice0) and Fb = len(side) + len(internal) (the
+# ``slab_face_table`` order), as in the JAX package.
+
+# the 4 faces of a tetrahedron (ids sorted: tet vertex tuples are sorted)
+TET_FACES = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]],
+                     dtype=np.int32)
+
+
+@lru_cache(maxsize=32)
+def slab_tets(H: int, W: int) -> np.ndarray:
+    """(3 * n_tris, 4) int32 tetrahedra of one slab in local 2-plane ids."""
+    HW = H * W
+    tris = spatial_triangles(H, W).astype(np.int64)
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    tau1 = np.stack([a, b, c, c + HW], 1)
+    tau2 = np.stack([a, b, b + HW, c + HW], 1)
+    tau3 = np.stack([a, a + HW, b + HW, c + HW], 1)
+    return np.concatenate([tau1, tau2, tau3], axis=0).astype(np.int32)
+
+
+def face_family_sizes(H: int, W: int):
+    """(Fs, Fb): per-slab slice-face and slab-face counts."""
+    f = slab_faces(H, W)
+    return len(f["slice0"]), len(f["side"]) + len(f["internal"])
+
+
+def _row_lookup(table: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """Index of each query row in ``table`` (every query must be a row)."""
+    uniq, inv = np.unique(np.concatenate([table, queries], axis=0), axis=0,
+                          return_inverse=True)
+    inv = inv.reshape(-1)
+    pos = np.full(len(uniq), -1, dtype=np.int64)
+    pos[inv[: len(table)]] = np.arange(len(table))
+    out = pos[inv[len(table):]]
+    if not (out >= 0).all():
+        raise ValueError("query face not present in face table "
+                         "(corrupt face ids?)")
+    return out
+
+
+@lru_cache(maxsize=32)
+def tet_face_map(H: int, W: int):
+    """Per tet-face (family, index) into the per-slab face enumeration:
+    family (Ntet, 4) int8 -- 0 bottom slice, 1 top slice (indexed in the
+    slice0 table), 2 slab face (indexed in ``slab_face_table``) -- and
+    index (Ntet, 4) int32."""
+    HW = H * W
+    tets = slab_tets(H, W).astype(np.int64)
+    tf = tets[:, TET_FACES]                    # (Ntet, 4, 3) local ids
+    slice_tab = slab_faces(H, W)["slice0"].astype(np.int64)
+    slab_tab = slab_face_table(H, W).astype(np.int64)
+
+    plane1 = tf >= HW
+    family = np.full(tf.shape[:2], 2, dtype=np.int8)
+    family[~plane1.any(axis=2)] = 0
+    family[plane1.all(axis=2)] = 1
+
+    index = np.empty(tf.shape[:2], dtype=np.int32)
+    flat = tf.reshape(-1, 3)
+    fam_flat = family.reshape(-1)
+    for fam, tab, off in ((0, slice_tab, 0), (1, slice_tab, HW),
+                          (2, slab_tab, 0)):
+        sel = fam_flat == fam
+        if sel.any():
+            index.reshape(-1)[sel] = _row_lookup(tab, flat[sel] - off)
+    return family, index
+
+
+def tet_face_fids(family, index, t_slab, H: int, W: int):
+    """Global face ids of tet faces of slab(s) ``t_slab`` (family / index
+    as ``tet_face_map`` gives them, any matching shapes)."""
+    Fs, Fb = face_family_sizes(H, W)
+    F = Fs + Fb
+    family = np.asarray(family)
+    index = np.asarray(index, dtype=np.int64)
+    t = np.asarray(t_slab, dtype=np.int64)
+    return np.where(family == 2, t * F + Fs + index,
+                    (t + (family == 1)) * F + index)
+
+
+def face_vertices(fids, H: int, W: int) -> np.ndarray:
+    """Global space-time vertex ids (N, 3) of faces given by global id."""
+    HW = H * W
+    Fs, Fb = face_family_sizes(H, W)
+    F = Fs + Fb
+    slice_tab = slab_faces(H, W)["slice0"].astype(np.int64)
+    slab_tab = slab_face_table(H, W).astype(np.int64)
+    fids = np.asarray(fids, dtype=np.int64)
+    t = fids // F
+    r = fids % F
+    is_slab = r >= Fs
+    out = np.empty((len(fids), 3), dtype=np.int64)
+    if (~is_slab).any():
+        out[~is_slab] = slice_tab[r[~is_slab]] + t[~is_slab, None] * HW
+    if is_slab.any():
+        out[is_slab] = slab_tab[r[is_slab] - Fs] + t[is_slab, None] * HW
+    return out
+
+
+def box_vertex_ids(shape, box) -> np.ndarray:
+    """Global flat vertex ids (t1-t0, i1-i0, j1-j0) int64 of the half-open
+    sub-box ``box = (t0, t1, i0, i1, j0, j1)`` of a (T, H, W) grid.  They
+    increase in the box's own row-major order, so a sub-box's local ids
+    are order-isomorphic to the global ids: the SoS predicates, which
+    read ids only through ``<``, are the same on a tile's extension as on
+    the whole field."""
+    T, H, W = shape
+    t0, t1, i0, i1, j0, j1 = box
+    tt = np.arange(t0, t1, dtype=np.int64)[:, None, None]
+    ii = np.arange(i0, i1, dtype=np.int64)[None, :, None]
+    jj = np.arange(j0, j1, dtype=np.int64)[None, None, :]
+    return tt * (H * W) + ii * W + jj

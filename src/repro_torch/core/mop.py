@@ -89,3 +89,20 @@ def assemble(res3: torch.Tensor, ressl: torch.Tensor, blockmap: torch.Tensor,
     mask = blockmap.to(res3.device)
     mask = mask.repeat_interleave(block, dim=1).repeat_interleave(block, dim=2)
     return torch.where(mask[:, :H, :W], ressl, res3)
+
+
+def select_units(res3_u, res3_v, ressl_u, ressl_v, block: int):
+    """``select`` of B (B, T, H, W) tile units at once: the units' frames
+    go through one histogram pass (tiles never mix frames, so each
+    tile's rate is the one its unit alone gives) and frame 0 of every
+    unit is 3DL.  Returns (B, T, nbi, nbj) bool on the host CPU."""
+    B, T, H, W = res3_u.shape
+
+    def flat(r):
+        return r.reshape(B * T, H, W)
+
+    use_sl = select(flat(res3_u), flat(res3_v), flat(ressl_u),
+                    flat(ressl_v), block)
+    use_sl = use_sl.reshape(B, T, *use_sl.shape[1:])
+    use_sl[:, 0] = False
+    return use_sl

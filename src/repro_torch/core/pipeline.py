@@ -19,8 +19,20 @@ fetches the residuals and writes a CPTZ1 / CPTL1 container
 and writes a CPTH1 container (entropy.field_sections_device).  Decode
 reads either, on the host.
 
-Only the monolithic fused plan is ported.  The legacy (``fused=False``),
-tiled and streaming bindings are refused (ROADMAP Queue 1).
+The tiled pipeline (core/tiling.py) runs the same stages per tile unit
+through ``PlanExecutor``'s unit entries: a unit quantizes its halo
+extension and stores residual streams of its owned box only, the
+temporal predictor restarting at the unit's first frame.
+``encode_unit`` / ``decode_fields`` run one unit through the
+whole-field kernel entries; ``encode_units`` / ``decode_units`` run a
+stack of same-signature units (``unit_signature``) through the
+unit-batched ones, one launch per stage for the stack.  Every stage is
+exact integer work or elementwise f64, the MoP rate model takes each
+tile's histogram alone, and the SL stepper is one device function, so
+a unit's streams are the same bytes either way and for any batch size.
+
+The legacy (``fused=False``) binding is refused (ROADMAP Queue 1 item
+4).
 """
 from __future__ import annotations
 
@@ -65,18 +77,21 @@ class PipelinePlan:
     # canonical spec of an adaptive eb policy (ebpolicy.TilePolicy.spec),
     # None for the uniform bound; it moves the container to version 3
     eb_policy: object = None
+    batch_units: bool = True         # tiled: stack same-signature units
 
     @property
     def g2f(self) -> float:
         return (2.0 * self.xi_unit) / self.scale
 
 
-def plan_from_cfg(cfg, scale: float, eb_abs: float) -> PipelinePlan:
-    """Plan from a CompressionConfig + the field-derived stream params."""
+def plan_from_cfg(cfg, scale: float, eb_abs: float,
+                  name: str = "fused") -> PipelinePlan:
+    """Plan from a CompressionConfig + the field-derived stream params;
+    ``name`` is the container's pipeline tag ("fused" | "tiled")."""
     tau = max(int(np.floor(eb_abs * scale)), 0)
     xi_unit, n_usable = quantize.ladder(tau, cfg.n_levels)
     return PipelinePlan(
-        name="fused",
+        name=name,
         predictor=cfg.predictor,
         block=cfg.block,
         n_levels=cfg.n_levels,
@@ -94,19 +109,20 @@ def plan_from_cfg(cfg, scale: float, eb_abs: float) -> PipelinePlan:
         max_rounds=cfg.max_rounds,
         codec=cfg.codec,
         eb_policy=ebpolicy.policy_spec(ebpolicy.normalize(cfg.eb_policy)),
+        batch_units=bool(cfg.batch_units),
     )
 
 
 def plan_from_header(header: dict) -> PipelinePlan:
-    """Decode-side plan.  Containers of the f64 steppers ("numpy",
-    "xla") decode with this package's f64 stepper; the f32 TPU stepper
-    ("pallas") is not ported and is refused."""
+    """Decode-side plan of a monolithic container or of a tiled footer
+    (whose unit frames carry their own codec).  Containers of the f64
+    steppers ("numpy", "xla") decode with this package's f64 stepper;
+    the f32 TPU stepper ("pallas") is not ported and is refused."""
     name = header.get("pipeline", "legacy")
-    if name != "fused":
+    if name not in ("fused", "tiled"):
         raise NotImplementedError(
             f"{name!r} pipeline containers are not ported to repro_torch "
-            "yet (ROADMAP Queue 1: the legacy binding, item 4; tiled, "
-            "item 6)")
+            "yet (ROADMAP Queue 1 item 4: the legacy binding)")
     tag = header.get("sl_backend")
     if tag not in backend.SL_DECODABLE:
         raise ValueError(
@@ -114,7 +130,7 @@ def plan_from_header(header: dict) -> PipelinePlan:
             f"repro_torch (decodes {backend.SL_DECODABLE}): 'pallas' is "
             "the f32 TPU stepper, which is not ported")
     codec = header.get("codec")
-    if codec not in ("zstd", "zlib", "huffman"):
+    if name == "fused" and codec not in ("zstd", "zlib", "huffman"):
         raise encode.ContainerError(
             f"unknown container codec {codec!r}; expected 'zstd', 'zlib' "
             "or 'huffman'")
@@ -146,8 +162,22 @@ def plan_from_header(header: dict) -> PipelinePlan:
     return plan
 
 
+def unit_signature(ext_shape, owned_shape, owned_offset):
+    """Batching signature: tile units sharing it stack through one
+    launch per stage (``PlanExecutor.encode_units``)."""
+    return (tuple(ext_shape), tuple(owned_shape), tuple(owned_offset))
+
+
+def owned_slices(owned):
+    """(ot, oi, oj, To, Ho, Wo) -> the owned box's slices in the
+    extension."""
+    ot, oi, oj, To, Ho, Wo = owned
+    return (slice(ot, ot + To), slice(oi, oi + Ho), slice(oj, oj + Wo))
+
+
 class PlanExecutor:
-    """A plan bound to a device."""
+    """A plan bound to a device: the full-field stages below and the
+    tile-unit entries of the tiled pipeline."""
 
     def __init__(self, plan: PipelinePlan, device: torch.device):
         self.plan = plan
@@ -157,8 +187,143 @@ class PlanExecutor:
     def g2f(self) -> float:
         return self.plan.g2f
 
+    @property
+    def codec(self) -> str:
+        return self.plan.codec
+
     def tables(self, H: int, W: int) -> dict:
         return grid.device_tables(H, W, str(self.device))
+
+    def _sl_args(self):
+        p = self.plan
+        return (p.g2f, p.cfl_x, p.cfl_y, p.d_max, p.n_max)
+
+    # ---- one tile unit (the whole-field kernel entries) ----------------
+
+    def encode_unit(self, ufp_e, vfp_e, eb_e, extra_e, owned):
+        """Quantize one unit's (Te, He, We) extension and build its owned
+        box's residual streams (owned = (ot, oi, oj, To, Ho, Wo)):
+        ``lorenzo_residual`` over the extension gives X, the owned
+        streams come from ``_unit_streams``.  Returns (xu_e, xv_e, ll_e,
+        res_u, res_v, bm (host))."""
+        p = self.plan
+        k, ll = _levels(eb_e, extra_e, p.xi_unit, p.n_levels)
+        _, _, xu_e, xv_e = backend.lorenzo_residual(
+            ufp_e, vfp_e, k, ll, p.xi_unit, p.block, want_x=True)
+        o = owned_slices(owned)
+        res_u, res_v, bm = self._unit_streams(
+            ufp_e[o], vfp_e[o], k[o], ll[o], xu_e[o], xv_e[o])
+        return xu_e, xv_e, ll, res_u, res_v, bm
+
+    def _unit_streams(self, ufp_o, vfp_o, k_o, ll_o, xu_o, xv_o):
+        """The stored streams of one unit: Lorenzo blocks from the owned
+        origin, the temporal predictor restarting at its first frame,
+        the SL stepper on the unit's own planes."""
+        p = self.plan
+        To, Ho, Wo = xu_o.shape
+        nb = (To, -(-Ho // p.block), -(-Wo // p.block))
+        if p.predictor == "lorenzo":
+            res_u, res_v = backend.lorenzo_residual(ufp_o, vfp_o, k_o, ll_o,
+                                                    p.xi_unit, p.block)
+            return res_u, res_v, np.zeros(nb, dtype=bool)
+        if To > 1:
+            pu, pv = backend.sl_predictions(xu_o, xv_o, *self._sl_args())
+        else:
+            pu = pv = torch.zeros((0, Ho, Wo), dtype=torch.int64,
+                                  device=xu_o.device)
+        if p.predictor == "sl":
+            bm = np.ones(nb, dtype=bool)
+            bm[0] = False
+            return (torch.cat([predictors.d2_block(xu_o[:1], p.block),
+                               xu_o[1:] - pu]),
+                    torch.cat([predictors.d2_block(xv_o[:1], p.block),
+                               xv_o[1:] - pv]), bm)
+        res3_u, res3_v = backend.lorenzo_residual(ufp_o, vfp_o, k_o, ll_o,
+                                                  p.xi_unit, p.block)
+        zero = torch.zeros_like(xu_o[:1])
+        ressl_u = torch.cat([zero, xu_o[1:] - pu])
+        ressl_v = torch.cat([zero, xv_o[1:] - pv])
+        bm = mop.select(res3_u, res3_v, ressl_u, ressl_v, p.block)
+        return (mop.assemble(res3_u, ressl_u, bm, p.block),
+                mop.assemble(res3_v, ressl_v, bm, p.block), bm.numpy())
+
+    def decode_fields(self, res_u, res_v, bm):
+        """One unit's (or field's) base-grid integers from its streams."""
+        return backend.sl_decode(res_u, res_v, bm, self.plan.block,
+                                 *self._sl_args())
+
+    # ---- a stack of same-signature units (the unit-batched entries) ----
+
+    def encode_units(self, owned, ufp_es, vfp_es, eb_es, extra_es):
+        """``encode_unit`` of B same-signature units stacked on axis 0,
+        one launch per kernel for the stack: K1 (X over the extensions,
+        residuals over the owned boxes), K4 over all B (To-1) frames,
+        one MoP selection pass.  Returns (xu_e, xv_e, ll_e, res_u, res_v,
+        bms (host (B, To, nbi, nbj)))."""
+        p = self.plan
+        k, ll = _levels(eb_es, extra_es, p.xi_unit, p.n_levels)
+        res3_u, res3_v, xu_e, xv_e = backend.lorenzo_residual_units(
+            ufp_es, vfp_es, k, ll, p.xi_unit, p.block, owned)
+        B = xu_e.shape[0]
+        To, Ho, Wo = owned[3:]
+        nb = (B, To, -(-Ho // p.block), -(-Wo // p.block))
+        if p.predictor == "lorenzo":
+            return xu_e, xv_e, ll, res3_u, res3_v, np.zeros(nb, dtype=bool)
+        o = (slice(None),) + owned_slices(owned)
+        xu_o, xv_o = xu_e[o], xv_e[o]
+        if To > 1:
+            pu, pv = backend.sl_predictions_units(xu_o, xv_o,
+                                                  *self._sl_args())
+        else:
+            pu = pv = torch.zeros((B, 0, Ho, Wo), dtype=torch.int64,
+                                  device=xu_o.device)
+        if p.predictor == "sl":
+            bms = np.ones(nb, dtype=bool)
+            bms[:, 0] = False
+            return (xu_e, xv_e, ll,
+                    torch.cat([predictors.d2_block(xu_o[:, :1], p.block),
+                               xu_o[:, 1:] - pu], dim=1),
+                    torch.cat([predictors.d2_block(xv_o[:, :1], p.block),
+                               xv_o[:, 1:] - pv], dim=1), bms)
+        zero = torch.zeros_like(xu_o[:, :1])
+        ressl_u = torch.cat([zero, xu_o[:, 1:] - pu], dim=1)
+        ressl_v = torch.cat([zero, xv_o[:, 1:] - pv], dim=1)
+        bms = mop.select_units(res3_u, res3_v, ressl_u, ressl_v, p.block)
+        flat_bm = bms.reshape(B * To, *nb[2:])
+
+        def assemble(r3, rsl):
+            return mop.assemble(r3.reshape(B * To, Ho, Wo),
+                                rsl.reshape(B * To, Ho, Wo), flat_bm,
+                                p.block).reshape(B, To, Ho, Wo)
+
+        return (xu_e, xv_e, ll, assemble(res3_u, ressl_u),
+                assemble(res3_v, ressl_v), bms.numpy())
+
+    def decode_units(self, res_u, res_v, bms):
+        """Decode simulation of a stack of units: one prefix sum, or one
+        ``sl_decode_units`` launch when a unit has SL blocks."""
+        return backend.sl_decode_units(res_u, res_v, bms, self.plan.block,
+                                       *self._sl_args())
+
+    # ---- decode and device codec of tiled containers --------------------
+
+    def decode_unit(self, unit_header: dict, sections: dict):
+        """A tiled container's unit frame -> (u, v) float32 numpy of its
+        owned box."""
+        try:
+            t0, t1, i0, i1, j0, j1 = (int(b) for b in unit_header["box"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise encode.ContainerError(f"malformed unit box: {e}") from e
+        return decode_payload(self, (t1 - t0, i1 - i0, j1 - j0), sections)
+
+    def entropy_fragments(self, res_u_stack, res_v_stack) -> list:
+        """Device entropy coding of stacked same-shape residual streams
+        (device codec): one section fragment per unit."""
+        return entropy.encode_streams(res_u_stack, res_v_stack)
+
+
+def executor_from_header(header: dict, device) -> PlanExecutor:
+    return PlanExecutor(plan_from_header(header), device)
 
 
 # ----------------------------------------------------------------------

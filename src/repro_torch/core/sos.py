@@ -60,3 +60,19 @@ def face_crossed_vals(uvals, vvals, idx):
         uvals[..., 1], vvals[..., 1], idx[..., 1],
         uvals[..., 2], vvals[..., 2], idx[..., 2],
     )
+
+
+def barycentric_crossing(uvals, vvals):
+    """Barycentric coordinates (alpha, beta, gamma) of the origin in
+    conv{a, b, c} (paper Eq. 2), numpy float64 from (..., 3) int64
+    values; meaningful on crossed faces only."""
+    import numpy as np
+
+    a_u, b_u, c_u = (uvals[..., i].astype(np.float64) for i in range(3))
+    a_v, b_v, c_v = (vvals[..., i].astype(np.float64) for i in range(3))
+    d_ab = a_u * b_v - a_v * b_u
+    d_bc = b_u * c_v - b_v * c_u
+    d_ca = c_u * a_v - c_v * a_u
+    df = d_ab + d_bc + d_ca
+    df = np.where(df == 0.0, 1.0, df)  # guarded; degenerate faces unused
+    return d_bc / df, d_ca / df, d_ab / df

@@ -16,6 +16,25 @@ from . import fixedpoint, grid, sos
 _FACE_BUDGET = 1 << 22
 
 
+class Lemma1ViolationError(RuntimeError):
+    """A tet with a crossed-face count outside {0, 2}: impossible under
+    SoS (paper Lemma 1), so it means inconsistent predicates upstream."""
+
+
+def check_lemma1(crossed, t_lo: int = 0):
+    """Raise Lemma1ViolationError unless every tet has 0 or 2 crossed
+    faces.  crossed: (C, Ntet, 4) bool (numpy) for slabs [t_lo, t_lo+C)."""
+    n_crossed = crossed.sum(axis=2)
+    bad = (n_crossed != 0) & (n_crossed != 2)
+    if bad.any():
+        ci, ti = np.nonzero(bad)
+        raise Lemma1ViolationError(
+            f"{bad.sum()} tets with crossed-face count not in {{0, 2}} "
+            f"(first: slab {t_lo + int(ci[0])}, tet {int(ti[0])}, "
+            f"count {int(n_crossed[ci[0], ti[0]])}); SoS predicates are "
+            f"inconsistent upstream")
+
+
 def face_predicate_tables(ufp, vfp, device="cpu") -> dict:
     """All face predicates: {'slice': (T, Fs) bool, 'slab': (T-1, Fb)
     bool} host numpy arrays, from int64 (T, H, W) fixed-point fields."""

@@ -69,6 +69,13 @@
 //   opting in; R is four, halved while the grid has fewer than four CTAs
 //   an SM.  The row, column and frame a CTA stages beyond its own are
 //   re-read by its neighbours, mostly from L2.
+// * Unit axis (verify_faces_units, the tiled pipeline): B same-shape tile
+//   extensions, each with its own fields, delta, original predicates and
+//   forced mask, go through one launch.  The CTAs of unit b are the
+//   whole-field grid of that unit, offset by b; every unit walks the same
+//   face records (one table per extension shape), and the bad faces of
+//   all units meet in one sum, which is all the encoder reads.  The
+//   whole-field entry is the case B = 1.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -147,28 +154,41 @@ __device__ __forceinline__ int staged_at(int y, int hw, int row0, int W,
   return up * plane + (r + down) * pitch + pos - row0 - down * W - j0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-verify_faces_kernel(const int64_t* __restrict__ ur,
-                    const int64_t* __restrict__ vr,
-                    const int64_t* __restrict__ uo,
-                    const int64_t* __restrict__ vo,
-                    const bool* __restrict__ delta,
-                    const int4* __restrict__ faces,
-                    const int* __restrict__ face_start, int fs, int fb,
-                    const bool* __restrict__ slice0,
-                    const bool* __restrict__ slab0, int T, int H, int W,
-                    int rows, int cols, int n_bands, int n_blocks,
-                    bool* __restrict__ forced,
-                    unsigned long long* __restrict__ work,
-                    int64_t* __restrict__ out) {
+#define K2_PARAMS                                                         \
+  const int64_t *__restrict__ ur, const int64_t *__restrict__ vr,         \
+      const int64_t *__restrict__ uo, const int64_t *__restrict__ vo,     \
+      const bool *__restrict__ delta, const int4 *__restrict__ faces,     \
+      const int *__restrict__ face_start, int fs, int fb,                 \
+      const bool *__restrict__ slice0, const bool *__restrict__ slab0,    \
+      int T, int H, int W, int rows, int cols, int n_bands, int n_blocks, \
+      int per_unit, bool *__restrict__ forced,                            \
+      unsigned long long *__restrict__ work, int64_t *__restrict__ out
+#define K2_ARGS                                                          \
+  ur, vr, uo, vo, delta, faces, face_start, fs, fb, slice0, slab0, T, H, \
+      W, rows, cols, n_bands, n_blocks, per_unit, forced, work, out
+
+__device__ __forceinline__ void verify_faces_body(K2_PARAMS) {
   extern __shared__ unsigned char staged[];  // [kFrames+1][rows+1][cols+1]
   __shared__ unsigned part[kWarps];
   __shared__ int seg_first[kMaxRows], seg_end[kMaxRows + 1];
-  const int blk = blockIdx.x % n_blocks;
-  const int band = blockIdx.x / n_blocks % n_bands;
-  const int t0 = blockIdx.x / n_blocks / n_bands * kFrames;
+  const int unit = blockIdx.x / per_unit;
+  const int cta = blockIdx.x % per_unit;
+  const int blk = cta % n_blocks;
+  const int band = cta / n_blocks % n_bands;
+  const int t0 = cta / n_blocks / n_bands * kFrames;
   const int i0 = band * rows, j0 = blk * cols;
   const int hw = H * W;                    // 2 H W < 2^31 (host check)
+  {  // unit `unit`'s fields, masks and predicates
+    const int64_t f0 = (int64_t)unit * T * hw;
+    ur += f0;
+    vr += f0;
+    if (uo != nullptr) uo += f0;
+    if (vo != nullptr) vo += f0;
+    if (delta != nullptr) delta += f0;
+    forced += f0;
+    slice0 += (int64_t)unit * T * fs;
+    slab0 += (int64_t)unit * (T - 1) * fb;
+  }
   const int pitch = cols + 1;
   const int plane = (rows + 1) * pitch;    // staged bytes a frame
   const int st_rows = min(rows + 1, H - i0);
@@ -252,6 +272,44 @@ verify_faces_kernel(const int64_t* __restrict__ ur,
   }
 }
 
+// the whole-field kernel and the unit-batched one (their own names in a
+// profile)
+__global__ void __launch_bounds__(kThreads)
+verify_faces_kernel(K2_PARAMS) { verify_faces_body(K2_ARGS); }
+
+__global__ void __launch_bounds__(kThreads)
+verify_faces_units_kernel(K2_PARAMS) { verify_faces_body(K2_ARGS); }
+
+int launch_verify(const int64_t* ur, const int64_t* vr, const int64_t* uo,
+                  const int64_t* vo, const bool* delta, const int4* faces,
+                  const int* face_start, int fs, int fb, const bool* slice0,
+                  const bool* slab0, bool units, int B, int T, int H, int W,
+                  bool* forced, unsigned long long* work, int64_t* out,
+                  void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t runs = (T + kFrames - 1) / kFrames;
+  const int n_blocks = (W + kMaxCols - 1) / kMaxCols;
+  const int cols = (W + n_blocks - 1) / n_blocks;
+  int rows = kMaxRows < H ? kMaxRows : H;
+  while (rows > 1 && B * runs * ((H + rows - 1) / rows) * n_blocks <
+                         (int64_t)kCtasPerSm * sms)
+    rows /= 2;
+  const int n_bands = (H + rows - 1) / rows;
+  const int64_t per_unit = runs * n_bands * n_blocks;
+  const int64_t ctas = B * per_unit;
+  if (ctas > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(kFrames + 1) * (rows + 1) * (cols + 1);
+  const auto kernel = units ? verify_faces_units_kernel : verify_faces_kernel;
+  kernel<<<(unsigned)ctas, kThreads, smem, (cudaStream_t)stream>>>(
+      ur, vr, uo, vo, delta, faces, face_start, fs, fb, slice0, slab0, T, H,
+      W, rows, cols, n_bands, n_blocks, (int)per_unit, forced, work, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // u, v: flat int64 vertex values; verts: (n, 3) int64 global vertex ids,
@@ -287,25 +345,23 @@ extern "C" int verify_faces(const int64_t* ur, const int64_t* vr,
                             int H, int W, bool* forced,
                             unsigned long long* work, int64_t* out,
                             void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t runs = (T + kFrames - 1) / kFrames;
-  const int n_blocks = (W + kMaxCols - 1) / kMaxCols;
-  const int cols = (W + n_blocks - 1) / n_blocks;
-  int rows = kMaxRows < H ? kMaxRows : H;
-  while (rows > 1 &&
-         runs * ((H + rows - 1) / rows) * n_blocks < (int64_t)kCtasPerSm * sms)
-    rows /= 2;
-  const int n_bands = (H + rows - 1) / rows;
-  const int64_t ctas = runs * n_bands * n_blocks;
-  if (ctas > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kFrames + 1) * (rows + 1) * (cols + 1);
-  verify_faces_kernel<<<(unsigned)ctas, kThreads, smem,
-                        (cudaStream_t)stream>>>(
-      ur, vr, uo, vo, delta, faces, face_start, fs, fb, slice0, slab0, T, H,
-      W, rows, cols, n_bands, n_blocks, forced, work, out);
-  return (int)cudaGetLastError();
+  return launch_verify(ur, vr, uo, vo, delta, faces, face_start, fs, fb,
+                       slice0, slab0, false, 1, T, H, W, forced, work, out,
+                       stream);
+}
+
+// verify_faces over B units in one launch: ur, vr (uo, vo), delta and
+// forced contiguous (B, T, H, W), slice0 (B, T, fs), slab0 (B, T - 1, fb);
+// out gets the bad faces of all units.
+extern "C" int verify_faces_units(const int64_t* ur, const int64_t* vr,
+                                  const int64_t* uo, const int64_t* vo,
+                                  const bool* delta, const int4* faces,
+                                  const int* face_start, int fs, int fb,
+                                  const bool* slice0, const bool* slab0,
+                                  int B, int T, int H, int W, bool* forced,
+                                  unsigned long long* work, int64_t* out,
+                                  void* stream) {
+  return launch_verify(ur, vr, uo, vo, delta, faces, face_start, fs, fb,
+                       slice0, slab0, true, B, T, H, W, forced, work, out,
+                       stream);
 }

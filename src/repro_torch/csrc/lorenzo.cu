@@ -96,40 +96,81 @@ __device__ __forceinline__ int64_t d2_at(const int64_t* s, int li, int lj,
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-lorenzo_residual_kernel(const int64_t* __restrict__ ufp,
-                        const int64_t* __restrict__ vfp,
-                        const int32_t* __restrict__ k,
-                        const uint8_t* __restrict__ ll,
-                        int64_t* __restrict__ ru, int64_t* __restrict__ rv,
-                        int64_t* __restrict__ xu, int64_t* __restrict__ xv,
-                        int T, int H, int W, int block, int run, int ntj,
-                        int ntiles, Divisor dv) {
+// The extension of unit b is (Te, He, We) at ufp + b Te He We (and k,
+// ll, xu, xv alike); its owned box is (To, Ho, Wo) at offset (ot, oi, oj),
+// with residuals at ru + b To Ho Wo.
+struct Box {
+  int Te, He, We;        // extension
+  int To, Ho, Wo;        // owned box
+  int ot, oi, oj;        // its offset in the extension
+};
+
+#define K1_PARAMS                                                        \
+  const int64_t *__restrict__ ufp, const int64_t *__restrict__ vfp,      \
+      const int32_t *__restrict__ k, const uint8_t *__restrict__ ll,     \
+      int64_t *__restrict__ ru, int64_t *__restrict__ rv,                \
+      int64_t *__restrict__ xu, int64_t *__restrict__ xv, Box bx,        \
+      int block, int run, int ntj, int ntiles, int nruns, Divisor dv
+#define K1_ARGS \
+  ufp, vfp, k, ll, ru, rv, xu, xv, bx, block, run, ntj, ntiles, nruns, dv
+
+template <bool kUnits>
+__device__ __forceinline__ void lorenzo_residual_body(K1_PARAMS) {
   __shared__ int64_t sx[2][2][kPlane];  // [frame parity][component][tile]
 
-  const int tile = blockIdx.x % ntiles;
-  const int t0 = (blockIdx.x / ntiles) * run;
-  const int t1 = min(T, t0 + run);
+  const int b = kUnits ? blockIdx.x / (ntiles * nruns) : 0;
+  const int rest = kUnits ? blockIdx.x % (ntiles * nruns) : blockIdx.x;
+  const int tile = rest % ntiles;
+  const int t0 = (rest / ntiles) * run;
+  const int t1 = min(bx.Te, t0 + run);
   const int i0 = (tile / ntj) * kTH;
   const int j0 = (tile % ntj) * kTW;
+  const int H = bx.He, W = bx.We;
   const int64_t HW = (int64_t)H * W;
+  // the owned box: offset (ot, oi0, oj0), planes Ho x Wo, To frames
+  const int ot = kUnits ? bx.ot : 0;
+  const int oi0 = kUnits ? bx.oi : 0;
+  const int oj0 = kUnits ? bx.oj : 0;
+  const int To = kUnits ? bx.To : bx.Te;
+  const int Wo = kUnits ? bx.Wo : W;
+  const int64_t ext0 = (int64_t)b * bx.Te * HW;   // unit b's extension
+  const int64_t oHW = kUnits ? (int64_t)bx.Ho * Wo : HW;
+  const int64_t own0 = (int64_t)b * To * oHW;
 
   // the thread's elements: column lj, rows r0, r0 + 4, ...
   const int lj = threadIdx.x % kTW;
   const int r0 = threadIdx.x / kTW;
   const int j = j0 + lj;
+  const int oj = j - oj0;                   // owned column
   int64_t off[kEPT];
-  unsigned msk[kEPT];          // bit 0: up neighbour, bit 1: left, 4: in range
+  int64_t roff[kEPT];          // its residual offset in the owned plane
+  unsigned msk[kEPT];          // bit 0: up neighbour, 1: left, 2: in the
+                               // extension, 3: in the owned plane
 #pragma unroll
   for (int e = 0; e < kEPT; ++e) {
     const int i = i0 + r0 + e * kRowStep;
+    const int oi = i - oi0;
+    const bool in = i < H && j < W;
+    const bool own = kUnits ? oi >= 0 && oi < bx.Ho && oj >= 0 && oj < Wo
+                            : in;
     off[e] = (int64_t)i * W + j;
-    msk[e] = ((i % block) != 0 ? 1u : 0u) | ((j % block) != 0 ? 2u : 0u) |
-             (i < H && j < W ? 4u : 0u);
+    if (kUnits) {
+      roff[e] = own ? (int64_t)oi * Wo + oj : 0;
+      msk[e] = (own && (oi % block) != 0 ? 1u : 0u) |
+               (own && (oj % block) != 0 ? 2u : 0u) | (in ? 4u : 0u) |
+               (own ? 8u : 0u);
+    } else {  // the owned box is the field: bit 3 is bit 2
+      msk[e] = ((i % block) != 0 ? 1u : 0u) |
+               ((j % block) != 0 ? 2u : 0u) | (in ? 12u : 0u);
+    }
   }
-  // the halo element of this thread, if the tile needs it
-  const bool top = (i0 % block) != 0;   // i0 > 0 then
-  const bool left = (j0 % block) != 0;
+  // the halo element of this thread, if the tile needs it: the row above
+  // / the column left of the tile where that edge is inside the owned
+  // plane but not on one of its block edges
+  const bool top = kUnits ? i0 > oi0 && ((i0 - oi0) % block) != 0
+                          : (i0 % block) != 0;
+  const bool left = kUnits ? j0 > oj0 && ((j0 - oj0) % block) != 0
+                           : (j0 % block) != 0;
   int64_t hoff = -1;
   int hs = 0;                  // its place in the staged tile
   {
@@ -156,7 +197,14 @@ lorenzo_residual_kernel(const int64_t* __restrict__ ufp,
 
   for (int t = t0 > 0 ? t0 - 1 : 0; t < t1; ++t) {
     const bool out = t >= t0;  // frame t0-1 only primes pu / pv
-    const int64_t base = (int64_t)t * HW;
+    const int tt = t - ot;     // owned frame
+    const bool res = kUnits ? out && tt >= 0 && tt < To : out;
+    if (kUnits && tt == 0) {   // the temporal predictor restarts here
+#pragma unroll
+      for (int e = 0; e < kEPT; ++e) pu[e] = pv[e] = 0;
+    }
+    const int64_t base = ext0 + (int64_t)t * HW;
+    const int64_t rbase = own0 + (int64_t)tt * oHW;
     int64_t* su = sx[t & 1][0];
     int64_t* sv = sx[t & 1][1];
     int64_t du[kEPT], dw[kEPT];
@@ -196,14 +244,15 @@ lorenzo_residual_kernel(const int64_t* __restrict__ ufp,
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < kEPT; ++e) {
-      if (msk[e] & 4u) {
+      if (msk[e] & 8u) {
         const int li = r0 + e * kRowStep;
         const unsigned m = msk[e] & 3u;
         const int64_t d_u = d2_at(su, li, lj, m);
         const int64_t d_v = d2_at(sv, li, lj, m);
-        if (out) {
-          ru[base + off[e]] = d_u - pu[e];
-          rv[base + off[e]] = d_v - pv[e];
+        if (res) {
+          const int64_t r = kUnits ? rbase + roff[e] : base + off[e];
+          ru[r] = d_u - pu[e];
+          rv[r] = d_v - pv[e];
         }
         pu[e] = d_u;
         pv[e] = d_v;
@@ -212,6 +261,37 @@ lorenzo_residual_kernel(const int64_t* __restrict__ ufp,
     // no second barrier: frame t+1 stages into the other buffer, and
     // frame t+2 (this buffer again) stages only after frame t+1's barrier
   }
+}
+
+// the whole-field kernel and the unit-batched one (their own names in a
+// profile)
+__global__ void __launch_bounds__(kThreads)
+lorenzo_residual_kernel(K1_PARAMS) { lorenzo_residual_body<false>(K1_ARGS); }
+
+__global__ void __launch_bounds__(kThreads)
+lorenzo_residual_units_kernel(K1_PARAMS) {
+  lorenzo_residual_body<true>(K1_ARGS);
+}
+
+template <bool kUnits>
+int launch(const int64_t* ufp, const int64_t* vfp, const int32_t* k,
+           const uint8_t* ll, int64_t* ru, int64_t* rv, int64_t* xu,
+           int64_t* xv, int B, const Box& bx, int block, int run,
+           int64_t xi_unit, uint32_t m, int sh1, int sh2, int fast,
+           void* stream) {
+  const int nti = (bx.He + kTH - 1) / kTH;
+  const int ntj = (bx.We + kTW - 1) / kTW;
+  const int ntiles = nti * ntj;
+  const int nruns = (bx.Te + run - 1) / run;
+  const int64_t ctas = (int64_t)B * ntiles * nruns;
+  if (ctas > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+  const Divisor dv = {2 * xi_unit, xi_unit, m, sh1, sh2, fast};
+  const auto kernel =
+      kUnits ? lorenzo_residual_units_kernel : lorenzo_residual_kernel;
+  kernel<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
+      ufp, vfp, k, ll, ru, rv, xu, xv, bx, block, run, ntj, ntiles, nruns,
+      dv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -226,13 +306,23 @@ extern "C" int lorenzo_residual_pair(
     const uint8_t* ll, int64_t* ru, int64_t* rv, int64_t* xu, int64_t* xv,
     int T, int H, int W, int block, int run, int64_t xi_unit, uint32_t m,
     int sh1, int sh2, int fast, void* stream) {
-  const int nti = (H + kTH - 1) / kTH;
-  const int ntj = (W + kTW - 1) / kTW;
-  const int ntiles = nti * ntj;
-  const int nruns = (T + run - 1) / run;
-  const Divisor dv = {2 * xi_unit, xi_unit, m, sh1, sh2, fast};
-  const dim3 grid((unsigned)((int64_t)ntiles * nruns));
-  lorenzo_residual_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      ufp, vfp, k, ll, ru, rv, xu, xv, T, H, W, block, run, ntj, ntiles, dv);
-  return (int)cudaGetLastError();
+  const Box bx = {T, H, W, T, H, W, 0, 0, 0};
+  return launch<false>(ufp, vfp, k, ll, ru, rv, xu, xv, 1, bx, block, run,
+                       xi_unit, m, sh1, sh2, fast, stream);
+}
+
+// B units: ufp, vfp, xu, xv contiguous (B, Te, He, We) int64, k int32 and
+// ll uint8 of that shape; ru, rv contiguous (B, To, Ho, Wo) int64, the
+// owned box at offset (ot, oi, oj) inside the extension.  Writes X of
+// every extension element and the residuals of the owned box.  Returns
+// the launch's cudaError_t.
+extern "C" int lorenzo_residual_units(
+    const int64_t* ufp, const int64_t* vfp, const int32_t* k,
+    const uint8_t* ll, int64_t* ru, int64_t* rv, int64_t* xu, int64_t* xv,
+    int B, int Te, int He, int We, int To, int Ho, int Wo, int ot, int oi,
+    int oj, int block, int run, int64_t xi_unit, uint32_t m, int sh1,
+    int sh2, int fast, void* stream) {
+  const Box bx = {Te, He, We, To, Ho, Wo, ot, oi, oj};
+  return launch<true>(ufp, vfp, k, ll, ru, rv, xu, xv, B, bx, block, run,
+                      xi_unit, m, sh1, sh2, fast, stream);
 }

@@ -52,6 +52,14 @@
 // a pixel outside an SL block needs only its own value of frame t-1,
 // which its thread keeps in registers, so only frames that hold an SL
 // block cost a grid-wide barrier.
+//
+// sl_decode_units decodes B same-shape tile units in one cooperative
+// launch (the tiled pipeline's verify simulation): the decode units of
+// all B fields share the grid, each field has its own per-frame SL
+// flags, and the grid meets before frame t when any field steps SL
+// blocks in it (a field whose frame t is Lorenzo-only still adds its
+// c2 there).  The whole-field entry is the case B = 1, compiled apart
+// (kUnits false) so that it carries no field index arithmetic.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -348,25 +356,35 @@ __device__ __forceinline__ void reg_put(int64_t (&r)[DEC_REG_UNITS], int k,
   for (int m = 0; m < DEC_REG_UNITS; ++m) r[m] = m == k ? x : r[m];
 }
 
-// Unit q in frame t and this thread's pixel in it; all but i, j, active
-// and g are CTA-uniform
+// Decode unit q (of all B fields) in frame t and this thread's pixel in
+// it; all but i, j, active and g are CTA-uniform
 struct UnitPixel {
   int r0, r1, c0, c1;  // the unit's rows [r0, r1), columns [c0, c1)
   int i, j;            // the thread's pixel
   bool some;           // the unit lies (partly) inside the plane
   bool active;         // the thread has a pixel in it
   bool sl;             // the unit is in an SL block of a flagged frame
-  int64_t g;           // the pixel's offset in (T, H, W)
+  int64_t g;           // the pixel's offset in (B, T, H, W)
+  int field;           // the field (tile unit) the unit belongs to
 };
 
-__device__ __forceinline__ UnitPixel unit_pixel(int q, int t, bool sl_frame,
+// sl_frame: some field steps SL blocks in frame t (the field's own
+// flag is read only then, and only with kUnits)
+template <bool kUnits>
+__device__ __forceinline__ UnitPixel unit_pixel(int q, int t, int T,
+                                                bool sl_frame,
+                                                const uint8_t* flags,
                                                 const uint8_t* bm, int H,
                                                 int W, int block, int nbi,
-                                                int nbj, int sub) {
+                                                int nbj, int sub,
+                                                int n_units) {
   UnitPixel u;
-  const int bq = q / (sub * sub);
-  const int uq = q % (sub * sub);
+  const int f = kUnits ? q / n_units : 0;  // the field (tile unit) of q
+  const int fq = kUnits ? q % n_units : q;
+  const int bq = fq / (sub * sub);
+  const int uq = fq % (sub * sub);
   const int bi = bq / nbj, bj = bq % nbj;
+  const int64_t ft = (int64_t)f * T + t;  // frame t of field f
   u.r0 = bi * block + (uq / sub) * DEC_UNIT;
   u.c0 = bj * block + (uq % sub) * DEC_UNIT;
   u.r1 = min(min(u.r0 + DEC_UNIT, (bi + 1) * block), H);
@@ -376,50 +394,59 @@ __device__ __forceinline__ UnitPixel unit_pixel(int q, int t, bool sl_frame,
   u.active = u.some && (int)threadIdx.x < (u.r1 - u.r0) * uw;
   u.i = u.r0 + (int)threadIdx.x / uw;
   u.j = u.c0 + (int)threadIdx.x % uw;
-  u.g = ((int64_t)t * H + u.i) * W + u.j;
-  u.sl = sl_frame && bm[((int64_t)t * nbi + bi) * nbj + bj] != 0;
+  u.g = (ft * H + u.i) * W + u.j;
+  u.sl = sl_frame && (!kUnits || flags[ft] != 0) &&
+         bm[(ft * nbi + bi) * nbj + bj] != 0;
+  u.field = f;
   return u;
 }
 
-__global__ void __launch_bounds__(DEC_THREADS)
-    sl_decode_kernel(const int64_t* c2u, const int64_t* c2v,
-                     const int64_t* ru, const int64_t* rv,
-                     const uint8_t* bm, const uint8_t* flags, int64_t* xu,
-                     int64_t* xv, int T, int H, int W, int block, double g2,
-                     double cx, double cy, double d_max, int n_max) {
+#define K3_PARAMS                                                      \
+  const int64_t *c2u, const int64_t *c2v, const int64_t *ru,           \
+      const int64_t *rv, const uint8_t *bm, const uint8_t *flags,      \
+      const uint8_t *sync, int64_t *xu, int64_t *xv, int B, int T,     \
+      int H, int W, int block, double g2, double cx, double cy,        \
+      double d_max, int n_max
+#define K3_ARGS                                                           \
+  c2u, c2v, ru, rv, bm, flags, sync, xu, xv, B, T, H, W, block, g2, cx, cy, \
+      d_max, n_max
+
+template <bool kUnits>
+__device__ __forceinline__ void sl_decode_body(K3_PARAMS) {
   __shared__ double su[DEC_SPAN * DEC_SPAN];
   __shared__ double sv[DEC_SPAN * DEC_SPAN];
   cg::grid_group grid = cg::this_grid();
   const int nbi = (H + block - 1) / block;
   const int nbj = (W + block - 1) / block;
   const int sub = (block + DEC_UNIT - 1) / DEC_UNIT;  // unit rows a block
-  const int n_units = nbi * nbj * sub * sub;
+  const int n_units = nbi * nbj * sub * sub;          // a field
+  const int n_all = kUnits ? B * n_units : n_units;
   const int64_t HW = (int64_t)H * W;
   int64_t reg_u[DEC_REG_UNITS] = {0}, reg_v[DEC_REG_UNITS] = {0};
   int64_t pre_u[DEC_REG_UNITS] = {0}, pre_v[DEC_REG_UNITS] = {0};
 
   for (int t = 0; t < T; ++t) {
-    const bool sl_frame = t > 0 && flags[t] != 0;
+    const bool sl_frame = t > 0 && sync[t] != 0;
     // this frame's residual (SL pixel) or c2 (any other) of the units in
     // registers, loaded before the barrier so that it waits with it
 #pragma unroll
     for (int k = 0; k < DEC_REG_UNITS; ++k) {
       const int q = blockIdx.x + k * gridDim.x;
-      if (q >= n_units) break;
-      const UnitPixel u =
-          unit_pixel(q, t, sl_frame, bm, H, W, block, nbi, nbj, sub);
+      if (q >= n_all) break;
+      const UnitPixel u = unit_pixel<kUnits>(q, t, T, sl_frame, flags, bm,
+                                             H, W, block, nbi, nbj, sub,
+                                             n_units);
       if (u.active) {
         pre_u[k] = u.sl ? ru[u.g] : c2u[u.g];
         pre_v[k] = u.sl ? rv[u.g] : c2v[u.g];
       }
     }
     if (sl_frame) grid.sync();
-    const int64_t* pu_prev = xu + (int64_t)max(t - 1, 0) * HW;  // frame t-1
-    const int64_t* pv_prev = xv + (int64_t)max(t - 1, 0) * HW;
     int k = 0;
-    for (int q = blockIdx.x; q < n_units; q += gridDim.x, ++k) {
-      const UnitPixel u =
-          unit_pixel(q, t, sl_frame, bm, H, W, block, nbi, nbj, sub);
+    for (int q = blockIdx.x; q < n_all; q += gridDim.x, ++k) {
+      const UnitPixel u = unit_pixel<kUnits>(q, t, T, sl_frame, flags, bm,
+                                             H, W, block, nbi, nbj, sub,
+                                             n_units);
       if (!u.some) continue;  // past the plane's edge, CTA-uniform
       const bool in_regs = k < DEC_REG_UNITS;
       int64_t x_u = 0, x_v = 0;
@@ -428,6 +455,10 @@ __global__ void __launch_bounds__(DEC_THREADS)
         x_v = in_regs ? reg_get(pre_v, k) : u.sl ? rv[u.g] : c2v[u.g];
       }
       if (u.sl) {
+        // frame t-1 of this unit's field
+        const int64_t prev = ((int64_t)u.field * T + t - 1) * HW;
+        const int64_t* pu_prev = xu + prev;
+        const int64_t* pv_prev = xv + prev;
         __syncthreads();  // the last unit's staged tile is read
         const Stage s =
             stage<LoadL2>(pu_prev, pv_prev, H, W, g2, u.r0 - DEC_HALO,
@@ -461,6 +492,46 @@ __global__ void __launch_bounds__(DEC_THREADS)
       }
     }
   }
+}
+
+// the whole-field kernel and the unit-batched one (their own names in a
+// profile)
+__global__ void __launch_bounds__(DEC_THREADS)
+    sl_decode_kernel(K3_PARAMS) { sl_decode_body<false>(K3_ARGS); }
+
+__global__ void __launch_bounds__(DEC_THREADS)
+    sl_decode_units_kernel(K3_PARAMS) { sl_decode_body<true>(K3_ARGS); }
+
+template <bool kUnits>
+int launch_decode(const int64_t* c2u, const int64_t* c2v, const int64_t* ru,
+                  const int64_t* rv, const uint8_t* bm, const uint8_t* flags,
+                  const uint8_t* sync, int64_t* xu, int64_t* xv, int B, int T,
+                  int H, int W, int block, double g2, double cfl_x,
+                  double cfl_y, double d_max, int n_max, int* grid_out,
+                  void* stream) {
+  const auto kernel = kUnits ? sl_decode_units_kernel : sl_decode_kernel;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, DEC_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int sub = (block + DEC_UNIT - 1) / DEC_UNIT;
+  const int64_t n_units = (int64_t)B * ((H + block - 1) / block) *
+                          ((W + block - 1) / block) * sub * sub;
+  if (n_units > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const int64_t fit = (int64_t)per_sm * sms;
+  const int64_t grid = fit < n_units ? fit : n_units;
+  *grid_out = (int)grid;
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&c2u, &c2v,   &ru, &rv,    &bm,     &flags, &sync,
+                  &xu,  &xv,    &B,  &T,     &H,      &W,     &block,
+                  &g2,  &cfl_x, &cfl_y, &d_max, &n_max};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3((unsigned)grid), dim3(DEC_THREADS),
+      args, 0, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -505,24 +576,24 @@ extern "C" int sl_decode(const int64_t* c2u, const int64_t* c2v,
                          int64_t* xv, int T, int H, int W, int block,
                          double g2, double cfl_x, double cfl_y, double d_max,
                          int n_max, int* grid_out, void* stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sl_decode_kernel, DEC_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  const int sub = (block + DEC_UNIT - 1) / DEC_UNIT;
-  const int64_t n_units = (int64_t)((H + block - 1) / block) *
-                          ((W + block - 1) / block) * sub * sub;
-  const int64_t fit = (int64_t)per_sm * sms;
-  const int64_t grid = fit < n_units ? fit : n_units;
-  *grid_out = (int)grid;
-  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&c2u, &c2v, &ru, &rv, &bm, &flags, &xu, &xv, &T,
-                  &H, &W, &block, &g2, &cfl_x, &cfl_y, &d_max, &n_max};
-  return (int)cudaLaunchCooperativeKernel(
-      (const void*)sl_decode_kernel, dim3((unsigned)grid), dim3(DEC_THREADS),
-      args, 0, (cudaStream_t)stream);
+  return launch_decode<false>(c2u, c2v, ru, rv, bm, flags, flags, xu, xv, 1,
+                              T, H, W, block, g2, cfl_x, cfl_y, d_max, n_max,
+                              grid_out, stream);
+}
+
+// sl_decode of B fields in one cooperative launch: c2u, c2v, ru, rv, xu,
+// xv contiguous (B, T, H, W) int64, bm (B, T, ceil(H / block),
+// ceil(W / block)) uint8, flags (B, T) uint8 (field b steps its SL blocks
+// in frame t), sync (T,) uint8 (some field does).
+extern "C" int sl_decode_units(const int64_t* c2u, const int64_t* c2v,
+                               const int64_t* ru, const int64_t* rv,
+                               const uint8_t* bm, const uint8_t* flags,
+                               const uint8_t* sync, int64_t* xu, int64_t* xv,
+                               int B, int T, int H, int W, int block,
+                               double g2, double cfl_x, double cfl_y,
+                               double d_max, int n_max, int* grid_out,
+                               void* stream) {
+  return launch_decode<true>(c2u, c2v, ru, rv, bm, flags, sync, xu, xv, B, T,
+                             H, W, block, g2, cfl_x, cfl_y, d_max, n_max,
+                             grid_out, stream);
 }

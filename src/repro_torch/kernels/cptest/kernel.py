@@ -1,7 +1,8 @@
 """ctypes wrappers of K2 (csrc/cptest.cu): the exact SoS face-crossing
 predicate with the vertex-value gather fused in (``face_crossed``), and
-one verify round of the encoder's fixpoint built on it, in one launch
-(``verify_faces``).
+one verify round of the encoder's fixpoint built on it, in one launch,
+for one field (``verify_faces``) or a stack of same-shape tile units
+(``verify_faces_units``).
 
 Replaces ``repro/kernels/cptest/kernel.py::face_crossed_pallas``.
 """
@@ -33,6 +34,15 @@ def _verify_fn():
     p, i32 = ctypes.c_void_p, ctypes.c_int
     f.argtypes = [p, p, p, p, p, p, p, i32, i32, p, p, i32, i32, i32, p, p,
                   p, p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _units_fn():
+    f = _build.load("cptest").verify_faces_units
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p, p, p, p, p, p, p, i32, i32, p, p, i32, i32, i32, i32, p,
+                  p, p, p]
     f.restype = ctypes.c_int
     return f
 
@@ -88,6 +98,38 @@ def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
     their lengths).  Any W: the kernel splits wide planes into blocks of
     columns.  Returns the number of bad faces as a 0-d int64 tensor on
     the device."""
+    out = _launch_verify(None, ur_fp, vr_fp, ufp, vfp, delta, slice_tab,
+                         slab_tab, slice0, slab0, forced)
+    verify_faces.launches += 1
+    return out
+
+
+verify_faces.launches = 0
+
+
+def verify_faces_units(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
+                       delta, slice_tab: torch.Tensor,
+                       slab_tab: torch.Tensor, slice0: torch.Tensor,
+                       slab0: torch.Tensor,
+                       forced: torch.Tensor) -> torch.Tensor:
+    """``verify_faces`` of B same-shape tile units in one launch: the
+    fields, delta and forced (B, T, H, W), slice0 (B, T, Fs), slab0 (B,
+    T-1, Fb); the tables are the units' shared ones.  Returns the bad
+    faces of all units as one 0-d int64 tensor."""
+    if ur_fp.ndim != 4 or ur_fp.shape[0] < 1:
+        raise ValueError(f"bad unit stack shape {tuple(ur_fp.shape)}")
+    out = _launch_verify(ur_fp.shape[0], ur_fp, vr_fp, ufp, vfp, delta,
+                         slice_tab, slab_tab, slice0, slab0, forced)
+    verify_faces_units.launches += 1
+    return out
+
+
+verify_faces_units.launches = 0
+
+
+def _launch_verify(B, ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab,
+                   slice0, slab0, forced):
+    """Checks and launch of both entries; B None is the whole-field one."""
     screen = delta is None
     fields = [ur_fp, vr_fp] + ([ufp, vfp] if screen else [])
     _check(fields + [slice_tab, slab_tab], torch.int64, "verify_faces")
@@ -95,16 +137,18 @@ def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
            torch.bool, "verify_faces")
     if forced.device != ur_fp.device:
         raise ValueError("inputs on different devices")
-    if ur_fp.ndim != 3 or ur_fp.shape[0] < 1:
+    lead = () if B is None else (B,)
+    if ur_fp.ndim != 3 + len(lead) or ur_fp.shape[len(lead)] < 1:
         raise ValueError(f"bad field shape {tuple(ur_fp.shape)}")
-    T, H, W = ur_fp.shape
+    T, H, W = ur_fp.shape[len(lead):]
     Fs, Fb = slice_tab.shape[0], slab_tab.shape[0]
     for t in fields + [forced] + ([] if screen else [delta]):
         if t.shape != ur_fp.shape:
             raise ValueError(f"field shapes differ: {tuple(t.shape)} vs "
                              f"{tuple(ur_fp.shape)}")
     if slice_tab.shape != (Fs, 3) or slab_tab.shape != (Fb, 3) \
-            or slice0.shape != (T, Fs) or slab0.shape != (T - 1, Fb):
+            or slice0.shape != lead + (T, Fs) \
+            or slab0.shape != lead + (T - 1, Fb):
         raise ValueError(
             f"bad face shapes {tuple(slice_tab.shape)} "
             f"{tuple(slab_tab.shape)} {tuple(slice0.shape)} "
@@ -124,17 +168,14 @@ def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
         if records.shape[0] != Fs + Fb:
             raise ValueError(f"{Fs} + {Fb} faces are not the mesh's "
                              f"{records.shape[0]} on {H}x{W} planes")
-        err = _verify_fn()(
-            ur_fp.data_ptr(), vr_fp.data_ptr(),
-            ufp.data_ptr() if screen else None,
-            vfp.data_ptr() if screen else None,
-            None if screen else delta.data_ptr(),
-            records.data_ptr(), start.data_ptr(), Fs, Fb,
-            slice0.data_ptr(), slab0.data_ptr(), T, H, W,
-            forced.data_ptr(), work.data_ptr(), out.data_ptr(), stream)
+        args = [ur_fp.data_ptr(), vr_fp.data_ptr(),
+                ufp.data_ptr() if screen else None,
+                vfp.data_ptr() if screen else None,
+                None if screen else delta.data_ptr(),
+                records.data_ptr(), start.data_ptr(), Fs, Fb,
+                slice0.data_ptr(), slab0.data_ptr()]
+        args += ([T, H, W] if B is None else [B, T, H, W])
+        args += [forced.data_ptr(), work.data_ptr(), out.data_ptr(), stream]
+        err = (_verify_fn() if B is None else _units_fn())(*args)
     _build.check(err, "verify_faces")
-    verify_faces.launches += 1
     return out
-
-
-verify_faces.launches = 0

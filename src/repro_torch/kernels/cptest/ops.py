@@ -1,5 +1,6 @@
-"""Dispatch of the face predicate and the verify round: a CUDA tensor
-launches K2, a CPU tensor takes the plain version."""
+"""Dispatch of the face predicate and the verify round (one field or a
+stack of tile units): a CUDA tensor launches K2, a CPU tensor takes the
+plain version."""
 from __future__ import annotations
 
 import torch
@@ -27,3 +28,16 @@ def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp, delta,
     if ur_fp.device.type != "cpu":
         raise ValueError(f"no verify_faces for device {ur_fp.device}")
     return ref.verify_faces(*args)
+
+
+def verify_faces_units(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
+                       delta, slice_tab: torch.Tensor, slab_tab: torch.Tensor,
+                       slice0: torch.Tensor, slab0: torch.Tensor,
+                       forced: torch.Tensor) -> torch.Tensor:
+    args = (ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab, slice0,
+            slab0, forced)
+    if ur_fp.is_cuda:
+        return kernel.verify_faces_units(*args)
+    if ur_fp.device.type != "cpu":
+        raise ValueError(f"no verify_faces_units for device {ur_fp.device}")
+    return ref.verify_faces_units(*args)

@@ -3,7 +3,7 @@ values, then the int64 SoS predicate of core/sos.py) and the verify
 round built on it, as the JAX package's ``pipeline.check_faces`` runs
 it (screen or touched-face selection, the predicate on the selected
 faces, compare with the original predicates, force the bad faces'
-vertices).  Any device."""
+vertices), for one field or per tile unit of a stack.  Any device."""
 from __future__ import annotations
 
 import torch
@@ -76,3 +76,17 @@ def verify_faces(ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab,
     bad = face_crossed(ur_fp.reshape(-1), vr_fp.reshape(-1), verts) != orig
     forced.view(-1)[verts[bad].reshape(-1)] = True
     return bad.sum()
+
+
+def verify_faces_units(ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab,
+                       slice0, slab0, forced) -> torch.Tensor:
+    """``verify_faces`` per unit of (B, ...) stacks (``forced[b]`` updated
+    in place); returns the bad faces of all units as a 0-d tensor."""
+    total = torch.zeros((), dtype=torch.int64, device=ur_fp.device)
+    for b in range(ur_fp.shape[0]):
+        total = total + verify_faces(
+            ur_fp[b], vr_fp[b], None if ufp is None else ufp[b],
+            None if vfp is None else vfp[b],
+            None if delta is None else delta[b], slice_tab, slab_tab,
+            slice0[b], slab0[b], forced[b])
+    return total

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ...core import predictors, quantize
+from ...parallel import sharding
 
 
 def lorenzo_residual(ufp: torch.Tensor, vfp: torch.Tensor, k: torch.Tensor,
@@ -18,3 +19,21 @@ def lorenzo_residual(ufp: torch.Tensor, vfp: torch.Tensor, k: torch.Tensor,
     res = (predictors.lorenzo_encode(xu, block),
            predictors.lorenzo_encode(xv, block))
     return res + (xu, xv) if want_x else res
+
+
+def lorenzo_residual_units(ufp: torch.Tensor, vfp: torch.Tensor,
+                           k: torch.Tensor, lossless: torch.Tensor,
+                           xi_unit: int, block: int, owned):
+    """Per unit: X over the (Te, He, We) extension, then the Lorenzo
+    residual of X's owned box (ot, oi, oj, To, Ho, Wo); stacked.  Returns
+    (res_u, res_v, xu, xv)."""
+    ot, oi, oj, To, Ho, Wo = (int(x) for x in owned)
+    o = (slice(ot, ot + To), slice(oi, oi + Ho), slice(oj, oj + Wo))
+
+    def one(u, v, kk, ll):
+        xu = quantize.dual_quantize(u, kk, ll, xi_unit)
+        xv = quantize.dual_quantize(v, kk, ll, xi_unit)
+        return (predictors.lorenzo_encode(xu[o], block),
+                predictors.lorenzo_encode(xv[o], block), xu, xv)
+
+    return sharding.map_tiles(one, ufp, vfp, k, lossless)

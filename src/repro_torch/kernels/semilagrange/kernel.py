@@ -1,6 +1,7 @@
 """ctypes wrappers of K3 and K4 (csrc/semilagrange.cu): the f64
 semi-Lagrangian decode of a whole field in one cooperative launch (K3,
-``sl_decode``) and the stepper over a stack of independent frames (K4,
+``sl_decode``; ``sl_decode_units`` for a stack of same-shape tile units
+in one launch) and the stepper over a stack of independent frames (K4,
 ``sl_step_batched``), plus the per-frame stepper ``sl_step`` that the
 tests hold K4 against.
 
@@ -82,7 +83,8 @@ def sl_step_batched(xu_prev: torch.Tensor, xv_prev: torch.Tensor,
 sl_step_batched.launches = 0
 
 
-def _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, block: int):
+def _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, block: int,
+                  lead=()):
     planes = (c2u, c2v, res_u, res_v)
     for t in planes:
         if t.dtype != torch.int64:
@@ -91,17 +93,21 @@ def _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, block: int):
         if t.dtype != torch.uint8:
             raise TypeError(f"expected a uint8 {what}, got {t.dtype}")
     shape = tuple(c2u.shape)
-    if len(shape) != 3 or any(tuple(t.shape) != shape for t in planes):
+    n = len(lead)
+    if len(shape) != 3 + n or shape[:n] != tuple(lead) \
+            or any(tuple(t.shape) != shape for t in planes):
         raise ValueError(
             f"bad plane shapes {[tuple(t.shape) for t in planes]}")
-    T, H, W = shape
+    T, H, W = shape[n:]
     if block < 1 or H * W >= 2 ** 31:
         raise ValueError(f"bad block {block} or plane {H}x{W}")
-    nb = (T, -(-H // block), -(-W // block))
-    if tuple(blockmap.shape) != nb or tuple(flags.shape) != (T,):
+    nb = tuple(lead) + (T, -(-H // block), -(-W // block))
+    if tuple(blockmap.shape) != nb or tuple(flags.shape) != tuple(lead) \
+            + (T,):
         raise ValueError(f"blockmap {tuple(blockmap.shape)} / flags "
                          f"{tuple(flags.shape)} do not fit {shape} in "
-                         f"{block}-blocks: expected {nb} / {(T,)}")
+                         f"{block}-blocks: expected {nb} / "
+                         f"{tuple(lead) + (T,)}")
     if not c2u.is_cuda:
         raise ValueError("sl_decode kernel needs CUDA tensors")
     for t in planes + (blockmap, flags):
@@ -109,6 +115,15 @@ def _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, block: int):
             raise ValueError("inputs on different devices")
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+
+
+def _decode_fn(name: str, n_dims: int):
+    f = getattr(_build.load("semilagrange"), name)
+    f.argtypes = [ctypes.c_void_p] * (8 + (name != "sl_decode")) + [
+        ctypes.c_int] * n_dims + [ctypes.c_double] * 4 + [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
 
 
 def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
@@ -130,17 +145,13 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
     xv = torch.empty_like(c2v)
     if xu.numel() == 0:
         return xu, xv
-    f = _build.load("semilagrange").sl_decode
-    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_double] * 4 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                                ctypes.c_void_p]
-    f.restype = ctypes.c_int
     grid = ctypes.c_int(0)
-    err = f(c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(),
-            res_v.data_ptr(), blockmap.data_ptr(), flags.data_ptr(),
-            xu.data_ptr(), xv.data_ptr(), T, H, W, int(block), float(g2f),
-            float(cfl_x), float(cfl_y), float(d_max), int(n_max),
-            ctypes.byref(grid), _build.stream_ptr(c2u.device))
+    err = _decode_fn("sl_decode", 4)(
+        c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
+        blockmap.data_ptr(), flags.data_ptr(), xu.data_ptr(), xv.data_ptr(),
+        T, H, W, int(block), float(g2f), float(cfl_x), float(cfl_y),
+        float(d_max), int(n_max), ctypes.byref(grid),
+        _build.stream_ptr(c2u.device))
     _build.check(err, f"sl_decode ({grid.value} CTAs)")
     sl_decode.launches += 1
     sl_decode.grid = grid.value
@@ -149,3 +160,41 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
 
 sl_decode.launches = 0
 sl_decode.grid = 0
+
+
+def sl_decode_units(c2u: torch.Tensor, c2v: torch.Tensor,
+                    res_u: torch.Tensor, res_v: torch.Tensor,
+                    blockmap: torch.Tensor, flags: torch.Tensor, block: int,
+                    g2f: float, cfl_x: float, cfl_y: float, d_max: float,
+                    n_max: int):
+    """``sl_decode`` of B same-shape tile units in one cooperative
+    launch: the planes (B, T, H, W), blockmap (B, T, ceil(H/block),
+    ceil(W/block)) and flags (B, T) uint8, each unit with its own.
+    Returns (xu, xv) (B, T, H, W), equal to ``ref.sl_decode_units``.
+    ``sl_decode_units.grid`` is the last launch's CTA count."""
+    if c2u.ndim != 4:
+        raise ValueError(f"bad unit stack shape {tuple(c2u.shape)}")
+    B = c2u.shape[0]
+    _check_decode(c2u, c2v, res_u, res_v, blockmap, flags, int(block),
+                  lead=(B,))
+    _, T, H, W = c2u.shape
+    xu = torch.empty_like(c2u)
+    xv = torch.empty_like(c2v)
+    if xu.numel() == 0:
+        return xu, xv
+    sync = (flags != 0).any(dim=0).to(torch.uint8).contiguous()
+    grid = ctypes.c_int(0)
+    err = _decode_fn("sl_decode_units", 5)(
+        c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
+        blockmap.data_ptr(), flags.data_ptr(), sync.data_ptr(),
+        xu.data_ptr(), xv.data_ptr(), B, T, H, W, int(block), float(g2f),
+        float(cfl_x), float(cfl_y), float(d_max), int(n_max),
+        ctypes.byref(grid), _build.stream_ptr(c2u.device))
+    _build.check(err, f"sl_decode_units ({grid.value} CTAs)")
+    sl_decode_units.launches += 1
+    sl_decode_units.grid = grid.value
+    return xu, xv
+
+
+sl_decode_units.launches = 0
+sl_decode_units.grid = 0

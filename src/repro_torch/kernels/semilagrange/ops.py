@@ -1,6 +1,6 @@
-"""Dispatch of the SL decode (K3) and of the stepper over a stack (K4)
-and per frame: a CUDA tensor launches the kernel, a CPU tensor takes the
-plain version."""
+"""Dispatch of the SL decode (K3, one field or a stack of tile units) and
+of the stepper over a stack (K4) and per frame: a CUDA tensor launches
+the kernel, a CPU tensor takes the plain version."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +41,17 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
     if c2u.device.type != "cpu":
         raise ValueError(f"no sl_decode for device {c2u.device}")
     return ref.sl_decode(*args)
+
+
+def sl_decode_units(c2u: torch.Tensor, c2v: torch.Tensor,
+                    res_u: torch.Tensor, res_v: torch.Tensor,
+                    blockmap: torch.Tensor, flags: torch.Tensor, block: int,
+                    g2f: float, cfl_x: float, cfl_y: float, d_max: float,
+                    n_max: int):
+    args = (c2u, c2v, res_u, res_v, blockmap, flags, block, g2f, cfl_x,
+            cfl_y, d_max, n_max)
+    if c2u.is_cuda:
+        return kernel.sl_decode_units(*args)
+    if c2u.device.type != "cpu":
+        raise ValueError(f"no sl_decode_units for device {c2u.device}")
+    return ref.sl_decode_units(*args)

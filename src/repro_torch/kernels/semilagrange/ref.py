@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ...core import predictors
+from ...parallel import sharding
 
 
 def sl_step(xu_prev: torch.Tensor, xv_prev: torch.Tensor, g2f: float,
@@ -63,3 +64,16 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
         us.append((prev_u - Su[cur - 1])[None] + Su[cur:])
         vs.append((prev_v - Sv[cur - 1])[None] + Sv[cur:])
     return torch.cat(us, dim=0), torch.cat(vs, dim=0)
+
+
+def sl_decode_units(c2u: torch.Tensor, c2v: torch.Tensor,
+                    res_u: torch.Tensor, res_v: torch.Tensor,
+                    blockmap: torch.Tensor, flags: torch.Tensor, block: int,
+                    g2f: float, cfl_x: float, cfl_y: float, d_max: float,
+                    n_max: int):
+    """``sl_decode`` per unit of (B, ...) stacks, stacked."""
+    def one(a, b, c, d, bm, fl):
+        return sl_decode(a, b, c, d, bm, fl, block, g2f, cfl_x, cfl_y,
+                         d_max, n_max)
+
+    return sharding.map_tiles(one, c2u, c2v, res_u, res_v, blockmap, flags)

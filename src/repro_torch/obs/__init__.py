@@ -14,8 +14,8 @@ Two layers with different gating:
 
 Tracing exports Chrome trace events (``obs.export_trace(path)``,
 loadable in Perfetto); ``obs.stage_durations(prefix)`` aggregates span
-wall times; ``obs.run_report(container)`` breaks a monolithic container
-into bytes per section kind and achieved-vs-Shannon bits.
+wall times; ``obs.run_report(container)`` breaks a container (monolithic
+or tiled) into bytes per section kind and achieved-vs-Shannon bits.
 Instrumentation is strictly observational: container bytes are
 identical with observability on and off.
 """

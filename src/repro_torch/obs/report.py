@@ -1,10 +1,10 @@
 """Rate accounting: where do the bytes of a finished container go?
 
-``run_report(container)`` decomposes a monolithic container into
-disjoint byte ranges by *kind*, summing exactly to the container size,
-plus the achieved bits-per-symbol against the Shannon bound of its own
-symbol histogram (the JAX package's ``repro.obs.report`` for CPTZ1,
-CPTL1 and CPTH1).
+``run_report(container)`` decomposes a container into disjoint byte
+ranges by *kind*, summing exactly to the container size, plus the
+achieved bits-per-symbol against the Shannon bound of its own symbol
+histogram, per unit (the JAX package's ``repro.obs.report`` for CPTZ1,
+CPTL1, CPTH1 and CPTT1).
 
 * A CPTH1 (device codec) frame is stored raw, so huffman bitstreams,
   256-entry code-length tables (inside the msgpack section index),
@@ -14,9 +14,12 @@ CPTL1 and CPTH1).
   split rides along under ``payload_bytes_by_kind`` (it cannot sum to
   the container bytes).
 
+* A CPTT1 (tiled) container adds its magic, the frame preambles, the
+  prologue frame and the directory footer to the kinds of its unit
+  frames; it needs the preambles of version >= 4.
+
 The Shannon bound is zero-order: ``H(histogram) * n`` bits over the
-decoded uint8 symbol streams.  Tiled (CPTT1) containers are not ported
-(ROADMAP Queue 1 item 6).
+decoded uint8 symbol streams.
 """
 from __future__ import annotations
 
@@ -93,6 +96,11 @@ def _host_frame(frame: bytes):
             payload_kinds)
 
 
+def _merge(dst: dict, src: dict):
+    for k, v in src.items():
+        dst[k] = dst.get(k, 0) + v
+
+
 def _unit_row(key, kinds, n_sym, achieved_bits, shannon_bits,
               eb_base=None):
     return {
@@ -102,9 +110,63 @@ def _unit_row(key, kinds, n_sym, achieved_bits, shannon_bits,
         "shannon_bits": round(float(shannon_bits), 1),
         "achieved_bps": round(achieved_bits / max(n_sym, 1), 4),
         "shannon_bps": round(shannon_bits / max(n_sym, 1), 4),
-        # the container's absolute base bound (its header's eb_abs)
+        # the unit's absolute base bound: its frame's own "eb_base"
+        # (adaptive policy) or the container's eb_abs
         "eb_base": None if eb_base is None else float(eb_base),
     }
+
+
+def _report_tiled(blob: bytes) -> dict:
+    header, footer_raw = encode.tiled_footer_ranged(
+        lambda off, ln: blob[off: off + ln], len(blob))
+    frames, _, legacy = encode._scan_frames(blob)
+    if legacy:
+        raise encode.ContainerError(
+            "rate accounting needs v4 frame preambles (pre-v4 archive)")
+    m = len(encode.MAGIC_TILED)
+    kinds = {
+        "magic": m,
+        "frame_preambles": encode.PREAMBLE_LEN * len(frames),
+        "prologue": 0,
+        # zlib(msgpack footer incl. directory + optional track index) +
+        # u32 length word + trailing magic
+        "directory_footer": len(footer_raw) + 4 + m,
+    }
+    payload_kinds = {}
+    units = []
+    codec = None
+    for fr in frames:
+        frame = blob[fr["off"]: fr["off"] + fr["len"]]
+        if fr["mark"] == encode.PROLOGUE_MARK:
+            kinds["prologue"] += fr["len"]
+            continue
+        key = fr["header"].get("key")
+        if frame[: len(encode.MAGIC_HUF)] == encode.MAGIC_HUF:
+            codec = codec or "device"
+            fh, fk, n_sym, ach, sh = _device_frame(frame)
+            _merge(kinds, fk)
+        else:
+            codec = codec or "host"
+            fh, fk, n_sym, ach, sh, pk = _host_frame(frame)
+            _merge(kinds, fk)
+            _merge(payload_kinds, pk)
+        units.append(_unit_row(
+            key, fk, n_sym, ach, sh,
+            eb_base=fh.get("eb_base", header.get("eb_abs"))))
+    out = {
+        "container": "CPTT1",
+        "codec": codec or "host",
+        "container_bytes": len(blob),
+        "n_units": len(units),
+        "bytes_by_kind": kinds,
+        "units": units,
+    }
+    ti = header.get(encode.TRACK_INDEX_KEY)
+    if ti is not None:
+        out["track_index_bytes_uncompressed"] = len(_msgpack.packb(ti))
+    if payload_kinds:
+        out["payload_bytes_by_kind"] = payload_kinds
+    return out
 
 
 def _report_monolithic(blob: bytes) -> dict:
@@ -135,10 +197,7 @@ def run_report(container: bytes) -> dict:
     ``bytes_by_kind`` values are disjoint container byte ranges and sum
     exactly to ``container_bytes``."""
     blob = bytes(container)
-    if blob[: len(encode.MAGIC_TILED)] == encode.MAGIC_TILED:
-        raise NotImplementedError(
-            "run_report on CPTT1 (tiled) containers is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 6)")
-    rep = _report_monolithic(blob)
+    rep = _report_tiled(blob) if encode.is_tiled(blob) \
+        else _report_monolithic(blob)
     rep["kind_bytes_total"] = int(sum(rep["bytes_by_kind"].values()))
     return rep

@@ -153,7 +153,8 @@ def test_refuses_unported_container_kinds(ref_blob):
     doctored = r_encode.pack(dict(header, pipeline="legacy"), sections)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         repro_torch.decompress(doctored, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a tiled container is no monolithic frame: unpack names the reader
+    with pytest.raises(encode.ContainerError, match="decompress_tiled"):
         encode.unpack(r_encode.MAGIC_TILED + b"\x00" * 32)
 
 

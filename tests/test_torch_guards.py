@@ -75,8 +75,9 @@ def test_default_device_needs_cuda(no_cuda, field):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(backend="numpy"), ValueError, "backend"),
-    (dict(tiling=object()), NotImplementedError, "item 6"),
-    (dict(codec="device", tiling=object()), NotImplementedError, "item 6"),
+    (dict(tiling=repro_torch.TileGrid(halo=0)), ValueError, "halo"),
+    (dict(codec="device", tiling=repro_torch.TileGrid(thalo=0)), ValueError,
+     "thalo"),
     (dict(codec="gzip"), ValueError, "codec"),
     (dict(fused=False), NotImplementedError, "item 4"),
     (dict(eb_policy=object()), TypeError, "eb_policy"),
@@ -86,6 +87,20 @@ def test_unported_config_refused(field, kw, exc, match):
     with pytest.raises(exc, match=match):
         repro_torch.compress(u, v, repro_torch.CompressionConfig(**kw),
                              device="cpu")
+
+
+def test_streaming_and_degraded_reads_refused(field):
+    from repro_torch.core import tiling
+
+    u, v = field
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tiling.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
+                               repro_torch.TileGrid(4, 4, 2))
+    blob, _ = repro_torch.compress_tiled(u, v, repro_torch.CompressionConfig(),
+                                         repro_torch.TileGrid(4, 4, 2),
+                                         device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        repro_torch.decompress_tiled(blob, device="cpu", degraded=True)
 
 
 @pytest.mark.parametrize("kw", [dict(autotune=True), dict(target_ratio=8.0)])
