@@ -39,6 +39,9 @@ Phases (any failure exits non-zero; nothing is caught):
               (given back bitwise); card blobs decode equal on both
               devices; the same for tiled containers (version 4, 5 and
               6, batch_units off, and the field whose verify rounds fire)
+              and for compress_stream (serial and async, versions 4, 5
+              and 6), and a salvage of a card container cut mid-frame
+              == the CPU's
 4. main    -- compress -> decompress at full size with each codec: the
               SCF analogue vortex_street(T=120, H=100, W=225) and an
               archive field vortex_street(T=64, H=512, W=512), with the
@@ -67,6 +70,31 @@ Phases (any failure exits non-zero; nothing is caught):
               the final encode (not once per unit), ratio, seconds and
               peak memory beside the monolithic run's, and a one-unit
               decompress_region that reads one unit
+4e. stream -- vortex_street(64, 512, 512) frame by frame from a generator
+              through compress_stream with TileGrid(128, 128, 32), each
+              codec, serial and async engine: the tiled phase's bytes,
+              launches == the chunk counts, every kernel called on the
+              caller's thread (threading.get_ident() of each call), the
+              frames resident after every frame within the scheduler's
+              bound, seconds, the async / serial ratio and the device
+              busy share under torch.profiler; then an async
+              device-codec stream of T = 192 (resident frames at the
+              bound, peak device memory within 5 % of the 64-frame run)
+4f. recovery -- at the SCF analogue a fresh interpreter SIGKILLs itself
+              before a mid-stream frame and before the last frame, on
+              each engine, once a checkpoint is durable (the async
+              writer commits it after the ingest has read ahead);
+              resume=True splices and finishes the uninterrupted bytes;
+              the 64x512x512 stream container cut before its footer
+              salvages every unit, and a copy with one unit's byte
+              flipped decodes degraded: exactly that unit missing, its
+              box holes, the rest == the clean decode
+4g. query  -- the 64x512x512 tiled container's track index:
+              track_summaries == the tracks of extraction.extract over
+              the full decode; the longest track's read plan,
+              decode_for_track's polyline == the extraction's bitwise, a
+              warm query reading less than a cold one, seconds, units
+              read and the launches of the cold query
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -131,6 +159,12 @@ SIZES = {
     "tiled": [((120, 100, 225), ("host", "device")),
               ((64, 512, 512), ("host", "device"))],
     "tile_grid": (128, 128, 32),
+    # streamed runs (the tiled phase's archive field) and the longer
+    # stream's length; the recovery children's kill points (frames) at
+    # the SCF analogue: mid-stream and before the last frame
+    "stream": (64, 512, 512),
+    "stream_long": 192,
+    "kill_at": (100, 119),
 }
 
 # the host codec's container bytes at the main sizes with zlib (the card's
@@ -659,6 +693,7 @@ def phase_parity(dev):
     parity_adaptive(dev, fields[0][1], fields[0][2])
     parity_nonfinite(dev, fields[0][1], fields[0][2])
     parity_tiled(dev, fields[0][1], fields[0][2])
+    parity_stream(dev, fields[0][1], fields[0][2])
 
 
 def parity_tiled(dev, u, v):
@@ -701,6 +736,60 @@ def parity_tiled(dev, u, v):
             f"{json.dumps(s_dev['chunks'])}, verify rounds "
             f"{s_dev['verify_rounds']} {s_dev['verify_bad_counts']}); decode "
             "equal")
+
+
+def parity_stream(dev, u, v):
+    """compress_stream on the card == on the CPU, serial and async
+    engine, for versions 4, 5 and 6; a salvage of the card container cut
+    mid-frame == the CPU's, and decodes equal on both devices."""
+    import repro_torch as rt
+    from repro_torch.core import ebpolicy, encode
+
+    (T, H, W), g = SIZES["parity_tiled"]
+    pol = ebpolicy.TilePolicy.make(**PARITY_POLICY)
+    meta = dict(eb=1e-3, **scf_meta(T, H, W))
+    vr = value_range(u, v)
+    tg = rt.TileGrid(*g)
+    cases = [("v4", dict(meta)), ("v5", dict(meta, codec="device")),
+             ("v6", dict(eb=5e-2, mode="abs", codec="device", eb_policy=pol,
+                         n_levels=ebpolicy.levels_for(pol)))]
+    for name, kw in cases:
+        cfg = rt.CompressionConfig(**kw)
+        b_cpu, _ = rt.compress_stream(frames(u, v), cfg, tg, value_range=vr,
+                                      device="cpu")
+        for engine in ("serial", "async"):
+            b_dev, st = rt.compress_stream(frames(u, v), cfg, tg,
+                                           value_range=vr, device=dev,
+                                           async_engine=engine == "async")
+            tag = f"parity stream {name} {engine} {u.shape} {tg}"
+            assert b_dev == b_cpu, f"{tag}: card and CPU blobs differ"
+            version = encode.tiled_header(b_dev)["version"]
+            assert version == int(name[1]), version
+            say(f"{tag}: card blob == CPU blob ({len(b_dev)} B, version "
+                f"{version}, {st['n_units']} units)")
+        units = sorted(encode.tiled_header(b_dev)["units"],
+                       key=lambda e: e["off"])
+        cut = units[len(units) // 2]["off"] + 7
+        s_dev, rep_dev = encode.salvage_container(b_dev[:cut])
+        s_cpu, rep_cpu = encode.salvage_container(b_cpu[:cut])
+        assert s_dev == s_cpu and rep_dev == rep_cpu \
+            and rep_dev["units_recovered"] == len(units) // 2
+        d_dev = rt.decompress(s_dev, device=dev)
+        d_cpu = rt.decompress(s_dev, device="cpu")
+        assert all(np.array_equal(a, b) for a, b in zip(d_dev, d_cpu))
+        say(f"parity salvage {name}: card container cut at byte {cut} "
+            f"salvages to the CPU's bytes ({len(s_dev)} B, "
+            f"{rep_dev['units_recovered']} of {len(units)} units); decode "
+            "equal")
+
+
+def frames(u, v):
+    """The field as a generator of (u_t, v_t) frames."""
+    return ((u[t], v[t]) for t in range(u.shape[0]))
+
+
+def value_range(u, v):
+    return (float(min(u.min(), v.min())), float(max(u.max(), v.max())))
 
 
 # the adaptive policy of the reference's tests (tests/test_ebpolicy.py)
@@ -1194,6 +1283,15 @@ def check_tiled_launches(tag, codec, stats, enc, dec, groups):
     units through the unit-batched entries (K1, K4, K3 where a unit has
     SL blocks, K2), a lone unit through the whole-field ones (K1 twice:
     X over the extension, residuals over the owned box)."""
+    want = check_encode_launches(tag, codec, stats, enc, groups)
+    assert all(dec[k] == 0 for k in want if k in dec and k != "sl_decode") \
+        and 0 < dec["sl_decode"] <= stats["n_units"], \
+        f"{tag}: decompress launches {dec}"
+
+
+def check_encode_launches(tag, codec, stats, enc, groups):
+    """The compress half of check_tiled_launches (a tiled or streamed
+    compress).  Returns the expected counts."""
     v, e = stats["chunks"]["verify"], stats["chunks"]["emit"]
     n_seg, n_ent = groups
     want = {
@@ -1216,16 +1314,15 @@ def check_tiled_launches(tag, codec, stats, enc, dec, groups):
     assert v["multi"] > 0 and v["multi"] + v["single"] < units, \
         f"{tag}: {v['multi'] + v['single']} verify chunks for {units} " \
         "unit rounds"
-    assert all(dec[k] == 0 for k in want if k in dec and k != "sl_decode") \
-        and 0 < dec["sl_decode"] <= stats["n_units"], \
-        f"{tag}: decompress launches {dec}"
+    return want
 
 
 def phase_tiled(dev, main, adaptive):
     """compress_tiled -> decompress at full width with TileGrid(128, 128,
     32): the SCF analogue and 64x512x512 with each codec, and the
     adaptive policy at the SCF analogue with codec="device".  Returns
-    the 64x512x512 device-codec run (phase 5's unit-kernel inputs)."""
+    the 64x512x512 device-codec run (phase 5's unit-kernel inputs) and
+    {(shape, codec): blob, stats, decode, seconds} of the uniform runs."""
     import repro_torch as rt
     from repro_torch.analysis import query
     from repro_torch.data import synthetic
@@ -1239,6 +1336,7 @@ def phase_tiled(dev, main, adaptive):
               and a["codec"] == "device")
     cases.append((ad["shape"], "device", ad))
     fields = {}
+    runs = {}
     for (T, H, W), codec, pol_run in cases:
         if (T, H, W) not in fields:
             fields[(T, H, W)] = synthetic.vortex_street(T=T, H=H, W=W)
@@ -1287,7 +1385,11 @@ def phase_tiled(dev, main, adaptive):
         if (T, H, W) == SIZES["tiled"][-1][0] and codec == "device" \
                 and pol_run is None:
             table_run = run
-    return table_run
+        if pol_run is None:
+            runs[(T, H, W), codec] = {k: run[k] for k in
+                                      ("blob", "stats", "dec", "enc_s",
+                                       "dec_s", "peak_above")}
+    return table_run, runs
 
 
 def check_guarantees(tag, u, v, ur, vr, stats, dev, bound=None):
@@ -1323,8 +1425,8 @@ class TiledClock(StageClock):
          "_attach_entropy_fragments"),
         ("write_unit", "repro_torch.core.tiling", "_write_unit"),
         ("finish_header", "repro_torch.core.tiling", "_finish_header"),
-        ("decode_units", "repro_torch.analysis.query",
-         "fetch_decoded_units"),
+        # a full decode reads unit by unit past the decoded-unit cache
+        ("decode_units", "repro_torch.core.pipeline", "decode_payload"),
     ]
 
 
@@ -1447,6 +1549,391 @@ def run_main(dev, tag, u, v, cfg, fns):
             "enc_counts": enc_counts, "dec_counts": dec_counts,
             "inputs": rec.inputs, "peak_above": (peak - held) / 2 ** 20,
             "enc_s": enc_s, "dec_s": dec_s}
+
+
+# ----------------------------------------------------------------------
+# phase 4e: streaming compression at full width
+# ----------------------------------------------------------------------
+
+class ThreadLog:
+    """The threads each kernel wrapper was called from, for one run
+    (``threads[name]``: set of ``threading.get_ident()``).  Like
+    Recorder, it swaps the ``kernel`` module the ops dispatch calls; the
+    wrappers' launch counts are untouched."""
+
+    def __init__(self):
+        self.threads = {n: set() for n, *_ in KERNELS}
+        self._saved = {}
+
+    def __enter__(self):
+        import importlib
+        import threading
+
+        by_mod = {}
+        for name, mod, attr, _, _ in KERNELS:
+            by_mod.setdefault(mod, []).append((name, attr))
+        for mod, entries in by_mod.items():
+            ops = importlib.import_module(f"repro_torch.kernels.{mod}.ops")
+            self._saved[mod] = (ops, ops.kernel)
+
+            def wrap(name, orig):
+                def logged(*args):
+                    self.threads[name].add(threading.get_ident())
+                    return orig(*args)
+                return logged
+            ops.kernel = types.SimpleNamespace(
+                **{attr: wrap(name, getattr(ops.kernel, attr))
+                   for name, attr in entries})
+        return self
+
+    def __exit__(self, *exc):
+        for ops, kmod in self._saved.values():
+            ops.kernel = kmod
+
+    def off_thread(self, ident):
+        return {n: sorted(t - {ident}) for n, t in self.threads.items()
+                if t - {ident}}
+
+
+class ResidentFrames:
+    """After every frame a stream takes: the frames resident in each
+    plane store (u, v, ufp, vfp, eb, forced and, under a policy, ebf)
+    must all lie at or after the first pending window's t0 - thalo (the
+    reference scheduler's bound); ``peak`` is the most frames any store
+    held."""
+
+    def __init__(self):
+        self.peak = 0
+
+    def __enter__(self):
+        from repro_torch.core import stream_engine
+
+        self._cls = stream_engine.Scheduler
+        self._orig = orig = self._cls.add_frame
+        rec = self
+
+        def add_frame(sched, *args):
+            orig(sched, *args)
+            st = sched.st
+            stores = [st.u, st.v, st.ufp, st.vfp, st.eb, st.forced] \
+                + ([st.ebf] if st.ebf is not None else [])
+            lo = sched.pending[0].t0 - sched.grid.thalo if sched.pending \
+                else 0
+            for planes in stores:
+                assert min(planes.p, default=lo) >= lo, \
+                    f"frame {min(planes.p)} resident below {lo}"
+            rec.peak = max(rec.peak, max(len(p.p) for p in stores))
+        self._cls.add_frame = add_frame
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.add_frame = self._orig
+
+
+def stream_bound(T, grid):
+    """The most frames the scheduler holds after a frame: 3 windows + 2
+    halos - 1 in steady state (the frame before a window's derivation,
+    kept from two windows back less a halo), the whole stream when it
+    is shorter (a window is written only once the next is derived)."""
+    return min(T, 3 * grid.window_t + 2 * grid.thalo - 1)
+
+
+def run_stream(dev, tag, u, v, cfg, grid, async_engine, fns):
+    """One counted stream of (u, v) frame by frame from a generator:
+    launches, the threads of every kernel call, resident frames, host
+    seconds, peak device memory above the held."""
+    import threading
+
+    import repro_torch as rt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with ThreadLog() as log, ResidentFrames() as res, \
+            CallCount("repro_torch.core.quantize", "dual_quantize") as dq:
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        blob, stats = rt.compress_stream(frames(u, v), cfg, grid,
+                                         value_range=value_range(u, v),
+                                         async_engine=async_engine,
+                                         device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(fns)
+        counts["dual_quantize"] = dq.calls
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    off = log.off_thread(threading.get_ident())
+    assert not off, f"{tag}: kernels launched off the caller's thread {off}"
+    bound = stream_bound(u.shape[0], grid)
+    assert res.peak <= bound, f"{tag}: {res.peak} frames resident > {bound}"
+    assert stats["async_engine"] is async_engine
+    return {"blob": blob, "stats": stats, "counts": counts, "s": secs,
+            "peak_above": peak, "resident": res.peak, "bound": bound}
+
+
+def phase_stream(dev, tiled_runs):
+    """compress_stream of vortex_street(64, 512, 512) frame by frame with
+    TileGrid(128, 128, 32), each codec, each engine: the tiled phase's
+    bytes, one launch per chunk, every kernel on the caller's thread, the
+    resident-frame bound, seconds, the async / serial ratio and the
+    device busy share; then one async device-codec stream of T = 192.
+    Returns the host-codec stream blob."""
+    import repro_torch as rt
+    from repro_torch.data import synthetic
+
+    fns = wrappers()
+    grid = rt.TileGrid(*SIZES["tile_grid"])
+    T, H, W = SIZES["stream"]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    groups = tiled_groups((T, H, W), grid)
+    out = {}
+    for codec in ("host", "device"):
+        cfg = rt.CompressionConfig(codec=codec, **scf_meta(T, H, W))
+        tiled = tiled_runs[(T, H, W), codec]
+        secs = {}
+        for engine in ("serial", "async"):
+            tag = f"stream {T}x{H}x{W} codec={codec} {engine}"
+            run = run_stream(dev, tag, u, v, cfg, grid, engine == "async",
+                             fns)
+            stats = run["stats"]
+            assert run["blob"] == tiled["blob"], \
+                f"{tag}: stream bytes differ from compress_tiled's"
+            check_encode_launches(tag, codec, stats, run["counts"], groups)
+            secs[engine] = run["s"]
+            out[codec, engine] = run
+            wall, busy, rows = device_profile(
+                lambda: rt.compress_stream(
+                    frames(u, v), cfg, grid, value_range=value_range(u, v),
+                    async_engine=engine == "async", device=dev))
+            say(f"{tag}: bytes == compress_tiled's ({len(run['blob'])} B, "
+                f"{stats['n_units']} units); {run['s']:.3f} s host clock "
+                f"(compress_tiled {tiled['enc_s']:.3f} s); all kernels on "
+                f"the caller's thread; resident frames at most "
+                f"{run['resident']} (bound {run['bound']}); peak device "
+                f"memory {run['peak_above']:.1f} MiB above the held "
+                f"(compress_tiled {tiled['peak_above']:.1f} MiB); profiled: "
+                f"wall {wall:.3f} s, device busy {busy:.4f} s "
+                f"({100 * busy / wall:.2f}%)")
+            say(f"{tag}: launches {json.dumps(run['counts'])} == the chunk "
+                f"counts {json.dumps(stats['chunks'])}")
+        say(f"stream {T}x{H}x{W} codec={codec}: async / serial "
+            f"{secs['async'] / secs['serial']:.4f} ({secs['async']:.3f} / "
+            f"{secs['serial']:.3f} s)")
+    # a longer stream: the frames held and the device memory do not grow
+    TL = SIZES["stream_long"]
+    ul, vl = synthetic.vortex_street(T=TL, H=H, W=W)
+    cfg = rt.CompressionConfig(codec="device", **scf_meta(TL, H, W))
+    tag = f"stream {TL}x{H}x{W} codec=device async"
+    long = run_stream(dev, tag, ul, vl, cfg, grid, True, fns)
+    short = out["device", "async"]
+    check_encode_launches(tag, "device", long["stats"], long["counts"],
+                          tiled_groups((TL, H, W), grid))
+    say(f"{tag}: {long['s']:.3f} s ({long['s'] / short['s']:.3f} x the "
+        f"{T}-frame stream), resident frames at most {long['resident']} "
+        f"(bound {long['bound']}; the {T}-frame stream held "
+        f"{short['resident']}, all of its frames), peak device memory "
+        f"{long['peak_above']:.1f} MiB above the held ({T} frames: "
+        f"{short['peak_above']:.1f} MiB, ratio "
+        f"{long['peak_above'] / short['peak_above']:.4f}), ratio "
+        f"{long['stats']['ratio']:.4f}")
+    assert long["peak_above"] <= 1.05 * short["peak_above"], \
+        f"{tag}: peak device memory grew with the stream's length"
+    assert long["resident"] == stream_bound(TL, grid) < TL
+    return out["host", "serial"]["blob"]
+
+
+# ----------------------------------------------------------------------
+# phase 4f: crash recovery
+# ----------------------------------------------------------------------
+
+_KILL_CHILD = r"""
+import os, signal, sys, time
+sys.path.insert(0, sys.argv[1])
+import repro_torch as rt
+from repro_torch.core import stream_engine
+from repro_torch.data import synthetic
+
+T, H, W, kill_at, th, tw, wt = (int(x) for x in sys.argv[2:9])
+engine, path, device = sys.argv[9:12]
+u, v = synthetic.vortex_street(T=T, H=H, W=W)
+vr = (float(min(u.min(), v.min())), float(max(u.max(), v.max())))
+
+def frames():
+    for t in range(T):
+        if t == kill_at:
+            # the async engine's writer makes a checkpoint durable after
+            # the ingest has read ahead: die once one is on disk, so the
+            # resume splices on both engines (serial: already there)
+            deadline = time.monotonic() + 120
+            while stream_engine.resume_info(path)["resume_from"] == 0 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+            os.kill(os.getpid(), signal.SIGKILL)
+        yield u[t], v[t]
+
+rt.compress_stream(frames(), rt.CompressionConfig(
+    dt=0.05, dx=2.0 / (W - 1), dy=1.0 / (H - 1)),
+    rt.TileGrid(th, tw, wt), value_range=vr, sink=path,
+    async_engine=engine == "async", device=device)
+"""
+
+
+def phase_recovery(dev, stream_blob, tiled_runs):
+    """Kill-and-resume on the card at the SCF analogue: a fresh
+    interpreter SIGKILLs itself before a mid-stream frame and before the
+    last frame, on each engine, and resume=True finishes the
+    uninterrupted bytes; salvage of the 64x512x512 stream container cut
+    before its footer recovers every unit; a degraded decode of a copy
+    with one unit's byte flipped reports exactly that unit."""
+    import repro_torch as rt
+    from repro_torch.core import encode, stream_engine
+    from repro_torch.data import synthetic
+
+    T, H, W = SIZES["main"][0]
+    grid = rt.TileGrid(*SIZES["tile_grid"])
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    cfg = rt.CompressionConfig(**scf_meta(T, H, W))
+    want = tiled_runs[(T, H, W), "host"]["blob"]
+    work = ROOT / "build" / "recovery"
+    work.mkdir(parents=True, exist_ok=True)
+    for engine in ("serial", "async"):
+        for kill_at in SIZES["kill_at"]:
+            tag = f"recovery {T}x{H}x{W} {engine} kill before frame {kill_at}"
+            path = work / f"{engine}-{kill_at}.cptt"
+            for f in (path, Path(f"{path}.journal")):
+                if f.exists():
+                    f.unlink()
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", _KILL_CHILD, str(ROOT / "src"),
+                 *(str(x) for x in (T, H, W, kill_at) + SIZES["tile_grid"]),
+                 engine, str(path), str(dev)],
+                capture_output=True, text=True, timeout=600)
+            child_s = time.perf_counter() - t0
+            assert res.returncode == -9, \
+                f"{tag}: child exited {res.returncode}: {res.stderr[-3000:]}"
+            info = stream_engine.resume_info(str(path))
+            assert info["resumable"] and not info["complete"] \
+                and info["resume_from"] > 0, info
+            t0 = time.perf_counter()
+            _, st = rt.compress_stream(
+                lambda t: frames(u[t:], v[t:]), cfg, grid,
+                value_range=value_range(u, v), sink=str(path), resume=True,
+                async_engine=engine == "async", device=dev)
+            resume_s = time.perf_counter() - t0
+            assert path.read_bytes() == want, \
+                f"{tag}: resumed container differs from the uninterrupted"
+            assert st["resumed_from"] == info["resume_from"]
+            assert not Path(f"{path}.journal").exists()
+            say(f"{tag}: child killed by SIGKILL after {child_s:.2f} s with "
+                f"{info['n_units']} units ({info['bytes']} B) durable; "
+                f"resume from frame {info['resume_from']} in {resume_s:.3f} "
+                f"s; container == the uninterrupted one ({len(want)} B)")
+            path.unlink()
+    # salvage and a degraded decode of the 64x512x512 stream container
+    TS, HS, WS = SIZES["stream"]
+    ref = tiled_runs[(TS, HS, WS), "host"]
+    units = encode.tiled_header(stream_blob)["units"]
+    last = max(units, key=lambda e: e["off"])
+    cut = stream_blob[: last["off"] + last["len"]]
+    t0 = time.perf_counter()
+    salvaged, rep = encode.salvage_container(cut)
+    salvage_s = time.perf_counter() - t0
+    assert rep["units_recovered"] == len(units) and rep["prologue_recovered"]
+    su, sv = rt.decompress_tiled(salvaged, device=dev)
+    assert np.array_equal(su, ref["dec"][0]) \
+        and np.array_equal(sv, ref["dec"][1])
+    say(f"recovery salvage {TS}x{HS}x{WS}: the stream container cut before "
+        f"its footer ({len(cut)} of {len(stream_blob)} B) -> "
+        f"{rep['units_recovered']} of {len(units)} units in "
+        f"{salvage_s:.3f} s; decode == the clean decode")
+    entry = units[len(units) // 2]
+    bad = bytearray(stream_blob)
+    bad[entry["off"] + entry["len"] // 2] ^= 0x20
+    t0 = time.perf_counter()
+    du, dv, drep = rt.decompress_tiled(bytes(bad), device=dev, degraded=True)
+    degraded_s = time.perf_counter() - t0
+    assert [m["key"] for m in drep.missing_units] == [tuple(entry["key"])]
+    hole = drep.hole_mask((0, TS, 0, HS, 0, WS))
+    t0_, t1_, i0, i1, j0, j1 = entry["box"]
+    assert hole.sum() == (t1_ - t0_) * (i1 - i0) * (j1 - j0) \
+        and hole[t0_:t1_, i0:i1, j0:j1].all()
+    assert not du[hole].any() and not dv[hole].any()
+    assert np.array_equal(du[~hole], ref["dec"][0][~hole]) \
+        and np.array_equal(dv[~hole], ref["dec"][1][~hole])
+    say(f"recovery degraded {TS}x{HS}x{WS}: one byte flipped in unit "
+        f"{entry['key']} -> reported missing exactly that unit, its box "
+        f"holes, the rest == the clean decode ({drep.n_decoded} of "
+        f"{drep.n_units} units, {degraded_s:.3f} s)")
+
+
+# ----------------------------------------------------------------------
+# phase 4g: track queries on the tiled container
+# ----------------------------------------------------------------------
+
+def phase_query(dev, tiled_runs):
+    """The track index of the 64x512x512 host-codec tiled container:
+    track_summaries == the tracks of extraction.extract over the full
+    decode; for the longest track, track_read_plan's units,
+    decode_for_track's polyline == the full extraction's bitwise, and a
+    warm query reads less than a cold one; launches of one cold query."""
+    from repro_torch import analysis
+    from repro_torch.analysis import extraction, query
+    from repro_torch.core import fixedpoint
+
+    fns = wrappers()
+    T, H, W = SIZES["stream"]
+    run = tiled_runs[(T, H, W), "host"]
+    blob = run["blob"]
+    t0 = time.perf_counter()
+    summaries = analysis.track_summaries(blob)
+    sum_s = time.perf_counter() - t0
+    ufp, vfp = fixedpoint.refix(*run["dec"], run["stats"]["scale"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = extraction.extract(ufp, vfp, device=dev)
+    extract_s = time.perf_counter() - t0
+    assert full.n_tracks == len(summaries) > 0, \
+        f"query: {full.n_tracks} extracted tracks, {len(summaries)} indexed"
+    for s in summaries:
+        tr = full.track(s["track_id"])
+        assert s["n_nodes"] == len(tr.face_ids), s
+        assert s["n_segments"] == int(
+            (full.track_of[full.edges[:, 0]] == s["track_id"]).sum()), s
+    k = max(summaries, key=lambda s: s["n_nodes"])["track_id"]
+    plan = analysis.track_read_plan(blob, k)
+    query.configure_unit_cache(256)
+    reset_counts(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = analysis.decode_for_track(blob, k, device=dev)
+    cold_s = time.perf_counter() - t0
+    counts = read_counts(fns)
+    t0 = time.perf_counter()
+    warm = analysis.decode_for_track(blob, k, device=dev)
+    warm_s = time.perf_counter() - t0
+    ref = full.track(k)
+    for res in (cold, warm):
+        assert np.array_equal(res.track.face_ids, ref.face_ids) \
+            and np.array_equal(res.track.nodes, ref.nodes) \
+            and np.array_equal(res.track.types, ref.types), \
+            "query: decode_for_track's polyline differs from the extraction"
+    assert cold.entries == plan and cold.units_read == len(plan) \
+        < cold.units_total
+    assert warm.range_reads < cold.range_reads \
+        and warm.cache_hits == warm.units_read
+    assert counts["sl_decode"] + counts["sl_decode_units"] > 0
+    say(f"query {T}x{H}x{W}: {len(summaries)} indexed tracks == "
+        f"extraction.extract of the full decode ({full.n_nodes} nodes; "
+        f"summaries {sum_s:.4f} s, extract {extract_s:.3f} s, full decode "
+        f"{run.get('dec_s', float('nan')):.3f} s); longest track {k} "
+        f"({len(ref.face_ids)} nodes): read plan {len(plan)} of "
+        f"{cold.units_total} units ({cold.bytes_read} B), polyline == the "
+        f"extraction's bitwise; cold {cold_s:.4f} s, {cold.range_reads} "
+        f"range reads; warm {warm_s:.4f} s, {warm.range_reads} range "
+        f"reads, {warm.cache_hits} cache hits")
+    say(f"query {T}x{H}x{W}: launches of the cold decode_for_track "
+        f"{json.dumps(counts)}")
 
 
 # ----------------------------------------------------------------------
@@ -1703,7 +2190,10 @@ def main() -> int:
     main_runs = phase_main(dev)
     adaptive_runs = phase_adaptive(dev, main_runs)
     phase_obs(dev, main_runs)
-    tiled_run = phase_tiled(dev, main_runs, adaptive_runs)
+    tiled_run, tiled_runs = phase_tiled(dev, main_runs, adaptive_runs)
+    stream_blob = phase_stream(dev, tiled_runs)
+    phase_recovery(dev, stream_blob, tiled_runs)
+    phase_query(dev, tiled_runs)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

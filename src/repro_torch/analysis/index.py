@@ -1,5 +1,5 @@
 """CPTT1 sidecar track index: per-unit segments, global track ids (the
-write side of the JAX package's ``analysis.index``).
+JAX package's ``analysis/index.py``).
 
 Built during tiled compression and stored in the container's footer
 under ``encode.TRACK_INDEX_KEY`` with its own version.  Per (tile,
@@ -23,6 +23,12 @@ from .extraction import dense_track_ids
 from .model import CP_TYPES
 
 TRACK_INDEX_VERSION = 1
+
+_ARRAY_FIELDS = (
+    "unit_keys", "unit_seg_ptr", "seg_fid", "seg_cell", "seg_track",
+    "track_t_min", "track_t_max", "track_bbox", "track_n_nodes",
+    "track_type_hist", "track_cover_ptr", "track_cover_unit",
+)
 
 
 def unit_key_of(t, i, j, tgrid):
@@ -167,3 +173,62 @@ class TrackIndexBuilder:
             "grid_units": [int(nwi), int(nti), int(ntj)],
             "arrays": {k: encode.pack_ndarray(v) for k, v in arrays.items()},
         }
+
+
+class TrackIndex:
+    """Parsed sidecar index (the read side)."""
+
+    def __init__(self, section: dict):
+        v = section.get("version", 0)
+        if v > TRACK_INDEX_VERSION:
+            raise ValueError(
+                f"track index version {v} is newer than this reader "
+                f"(supports <= {TRACK_INDEX_VERSION})")
+        self.version = v
+        self.n_tracks = int(section["n_tracks"])
+        self.n_segments = int(section["n_segments"])
+        self.spiral_tol = float(section["spiral_tol"])
+        self.grid_units = tuple(int(x) for x in section["grid_units"])
+        for name in _ARRAY_FIELDS:
+            setattr(self, name, encode.unpack_ndarray(
+                section["arrays"][name]))
+        # once at parse time: per-track summaries must not rescan the
+        # segment array per track
+        self.track_seg_counts = np.bincount(
+            self.seg_track, minlength=self.n_tracks)
+
+    def cover_units(self, track_id: int):
+        """Sorted encoded unit keys covering a track."""
+        self._check(track_id)
+        lo = int(self.track_cover_ptr[track_id])
+        hi = int(self.track_cover_ptr[track_id + 1])
+        return self.track_cover_unit[lo:hi]
+
+    def track_segments(self, track_id: int):
+        """(S, 2) face-id pairs + (S, 3) cells of one track's segments."""
+        self._check(track_id)
+        sel = self.seg_track == track_id
+        return self.seg_fid[sel], self.seg_cell[sel]
+
+    def _check(self, track_id: int):
+        if not 0 <= track_id < self.n_tracks:
+            raise IndexError(
+                f"track id {track_id} out of range [0, {self.n_tracks})")
+
+    def decode_keys(self, enc):
+        """Encoded unit keys -> (wi, ti, tj) int arrays."""
+        _, nti, ntj = self.grid_units
+        enc = np.asarray(enc, np.int64)
+        return enc // (nti * ntj), (enc // ntj) % nti, enc % ntj
+
+
+def parse_track_index(header: dict) -> TrackIndex:
+    """TrackIndex of a tiled container's footer header."""
+    section = header.get(encode.TRACK_INDEX_KEY)
+    if section is None:
+        raise ValueError(
+            "container has no track index (compressed with "
+            "track_index=False or by a pre-index writer); re-compress "
+            "with CompressionConfig(track_index=True) to enable "
+            "feature-directed queries")
+    return TrackIndex(section)

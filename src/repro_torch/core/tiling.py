@@ -1,5 +1,5 @@
-"""Tiled compression with halo-exact trajectory preservation (the JAX
-package's ``core/tiling.py``, without streaming).
+"""Tiled and streaming compression with halo-exact trajectory
+preservation (the JAX package's ``core/tiling.py``).
 
 The field is split into spatial tiles x temporal windows; every (tile,
 window) is an independent unit of a random-access CPTT1 container
@@ -35,13 +35,21 @@ each round uploads each chunk's stacked extension boxes once.
 Entry points:
 
     blob, stats = compress_tiled(u, v, cfg, TileGrid(...))
+    blob, stats = compress_stream(frame_pairs, cfg, grid,
+                                  value_range=(lo, hi))   # bounded memory
     u, v = decompress_tiled(blob)                          # full field
     u, v = decompress_region(blob, (t0, t1, i0, i1, j0, j1))
+    u, v, report = decompress_tiled(blob, degraded=True)   # damaged units
     plan = read_plan(blob, region)   # directory entries a decode reads
 
 Each runs on the CUDA device unless ``device="cpu"`` is passed.
-Streaming (``compress_stream``) and degraded reads are ROADMAP Queue 1
-item 8.
+
+``compress_stream`` consumes per-frame ``(u_t, v_t)`` planes and keeps
+only the frames the first pending window needs (``_Planes.drop_below``);
+a window's units are written once later frames can no longer change its
+verify outcome (core/stream_engine.py runs the schedule, serially or on
+three overlapped stages).  A verify cascade that would force a vertex
+of an already-written window raises StreamingCascadeError.
 """
 from __future__ import annotations
 
@@ -67,9 +75,8 @@ TILED_FORMAT_VERSION_ADAPTIVE = 6
 _EB_BIG = np.int64(2**62)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item 8)")
+class StreamingCascadeError(RuntimeError):
+    """A verify-and-correct cascade crossed the emitted-window frontier."""
 
 
 # ----------------------------------------------------------------------
@@ -209,6 +216,15 @@ class _Planes:
             sl = self.ensure(t)[i0:i1, j0:j1]
             np.minimum(sl, vals[k], out=sl)
 
+    def or_box(self, b, vals):
+        t0, t1, i0, i1, j0, j1 = b
+        for k, t in enumerate(range(t0, t1)):
+            self.ensure(t)[i0:i1, j0:j1] |= vals[k]
+
+    def drop_below(self, t):
+        for k in [k for k in self.p if k < t]:
+            del self.p[k]
+
 
 class _PlanesView:
     """(T, H, W) fancy-indexing facade over _Planes frames (what
@@ -249,6 +265,9 @@ class _State:
     eb: _Planes
     forced: _Planes
     preds: dict = dataclasses.field(default_factory=dict)
+    # the extension's forced mask each unit last checked against (a
+    # later fixpoint call re-checks only what was forced since)
+    seen: dict = dataclasses.field(default_factory=dict)
     writer: object = None
     tindex: object = None           # analysis.index.TrackIndexBuilder
     n_frames: int = 0
@@ -322,14 +341,24 @@ def _init_state(cfg, grid: TileGrid, H, W, vrange, sink, device):
     return st
 
 
-def _add_frame(st: _State, t, u_t, v_t):
+def _add_frame(st: _State, t, u_t, v_t, ufp_t=None, vfp_t=None):
+    """Insert frame ``t``; ``ufp_t`` / ``vfp_t`` take fixed-point planes
+    computed off-thread (the async engine's ingest stage: the rounding
+    is deterministic, so where it runs changes no bit)."""
     u_t = np.asarray(u_t, np.float32)
     v_t = np.asarray(v_t, np.float32)
+    if u_t.shape != (st.H, st.W) or v_t.shape != (st.H, st.W):
+        raise ValueError(
+            f"frame {t} shape {u_t.shape}/{v_t.shape} != ({st.H}, {st.W})")
     st.n_frames = max(st.n_frames, t + 1)
     st.u.put(t, u_t)
     st.v.put(t, v_t)
-    st.ufp.put(t, np.round(u_t.astype(np.float64) * st.scale))
-    st.vfp.put(t, np.round(v_t.astype(np.float64) * st.scale))
+    if ufp_t is None:
+        ufp_t = np.round(u_t.astype(np.float64) * st.scale)
+    if vfp_t is None:
+        vfp_t = np.round(v_t.astype(np.float64) * st.scale)
+    st.ufp.put(t, ufp_t)
+    st.vfp.put(t, vfp_t)
 
 
 def _stack(st: _State, specs, planes: _Planes, box="ext_box"):
@@ -461,15 +490,25 @@ def _round_work(st: _State, work):
     return out, n_bad
 
 
-def _fixpoint(st: _State, windows):
-    """The seam-agreed verify loop over all units: per round every
-    participating unit checks its extension as the monolithic round
-    would (screen on first contact, the faces of newly forced vertices
-    after it), and the round's union of forced vertices is applied
-    globally before the next round."""
+def _fixpoint(st: _State, windows, frontier: int = 0):
+    """The seam-agreed verify loop over the windows' units: per round
+    every participating unit checks its extension as the monolithic
+    round would (screen on first contact, the faces of newly forced
+    vertices after it), and the round's union of forced vertices is
+    applied globally before the next round.  A unit checked by an
+    earlier call joins only with the vertices forced since (``seen``).
+    Raises StreamingCascadeError when an addition lands below
+    ``frontier`` (an already-written frame)."""
     cfg = st.cfg
     specs = [s for w in windows for s in w.specs]
-    work = [(spec, None) for spec in specs]
+    work = []
+    for spec in specs:
+        if spec.key not in st.seen:
+            work.append((spec, None))
+        else:
+            delta = st.forced.box(spec.ext_box) & ~st.seen[spec.key]
+            if delta.any():
+                work.append((spec, delta))
     rounds = 0
     while work:
         additions = {}
@@ -485,6 +524,11 @@ def _fixpoint(st: _State, windows):
         st.bad_counts.append(n_bad)
         if not additions or rounds >= cfg.max_rounds:
             break
+        if min(additions) < frontier:
+            raise StreamingCascadeError(
+                f"verify cascade reached emitted frame {min(additions)} "
+                f"(< frontier {frontier}); increase window_t or use "
+                f"compress_tiled")
         for t, mask in additions.items():
             st.forced.ensure(t)
             st.forced.p[t] |= mask
@@ -500,6 +544,8 @@ def _fixpoint(st: _State, windows):
             if delta.any():
                 work.append((spec, delta))
     obs.count("tiling.verify_rounds", rounds)
+    for spec in specs:
+        st.seen[spec.key] = st.forced.box(spec.ext_box)
 
 
 # ----------------------------------------------------------------------
@@ -640,14 +686,17 @@ def _window_segment_records(st: _State, w) -> dict:
 
 @dataclasses.dataclass
 class _UnitPayload:
-    """What the write stage needs for one unit."""
+    """What the write stage needs for one unit: host data only, with no
+    reference into the plane store (the async engine hands payloads to
+    its writer thread, which launches nothing and copies nothing from
+    the device)."""
 
     key: tuple
     box: tuple
     ll: object          # owned lossless mask (np bool)
     u_ll: object        # raw values at lossless vertices (np f32)
     v_ll: object
-    res_u: object       # residual streams (device tensors)
+    res_u: object       # residual streams (host numpy, host codec)
     res_v: object
     bm: object          # blockmap (np bool)
     seg: object         # segment records | None
@@ -672,6 +721,10 @@ def _unit_payloads(st: _State, w):
             st.chunks["emit"]["multi" if len(chunk) > 1 else "single"] += 1
             o = (slice(None),) + chunk[0].owned_in_ext
             ll_o = ll_e[o].cpu().numpy()
+            if st.ex.codec != "device":
+                # the host codec's streams go to the host here, on the
+                # caller's thread (the device codec codes them below)
+                res_u, res_v = res_u.cpu().numpy(), res_v.cpu().numpy()
             for b, spec in enumerate(chunk):
                 streams[spec.key] = (ll_o[b], res_u[b], res_v[b], bms[b])
         payloads = []
@@ -686,7 +739,9 @@ def _unit_payloads(st: _State, w):
                 seg=None if seg_records is None else seg_records[spec.key],
                 eb_base=(None if st.policy is None else
                          float(st.ebf.box(spec.owned_box).max()))))
-            st.preds.pop(spec.key, None)       # its original predicates
+            # its original predicates and seam snapshot are dead now
+            st.preds.pop(spec.key, None)
+            st.seen.pop(spec.key, None)
         if st.ex.codec == "device":
             _attach_entropy_fragments(st, payloads)
     return payloads
@@ -712,16 +767,17 @@ def _attach_entropy_fragments(st: _State, payloads):
 
 
 def _write_unit(st: _State, p: _UnitPayload):
-    """Symbolize + pack one unit, record its directory and index rows."""
+    """Symbolize + pack one unit, record its directory and index rows
+    (host work on the payload only: the async engine's writer thread
+    runs it)."""
     header = {"box": [int(x) for x in p.box]}
     if p.eb_base is not None:
         header["eb_base"] = float(p.eb_base)
     if p.frag is not None:
         sections = entropy.merge_sections(p.frag, p.ll, p.u_ll, p.v_ll, p.bm)
     else:
-        sections = encode.field_sections(
-            p.res_u.cpu().numpy(), p.res_v.cpu().numpy(), p.ll, p.u_ll,
-            p.v_ll, p.bm)
+        sections = encode.field_sections(p.res_u, p.res_v, p.ll, p.u_ll,
+                                         p.v_ll, p.bm)
     st.writer.add_unit(p.key, p.box, header, sections)
     if p.seg is not None:
         st.tindex.add_unit(p.key, *p.seg)
@@ -866,8 +922,64 @@ def compress_tiled(u, v, cfg=None, grid: Optional[TileGrid] = None,
     return blob, _stats(st, T, blob, t_start)
 
 
-def compress_stream(*args, **kwargs):
-    raise _not_ported("streaming compression (compress_stream)")
+def compress_stream(pairs, cfg=None, grid: Optional[TileGrid] = None,
+                    value_range=None, sink=None, async_engine=False,
+                    resume=False, faults=None, stage_timeout=None,
+                    autotune=False, *, device=None):
+    """Streaming tiled compression of an iterable of (u_t, v_t) frames;
+    the bytes equal ``compress_tiled``'s for the same field.
+
+    ``value_range=(lo, hi)`` must be the exact global min / max over both
+    components (it fixes the fixed-point scale and a relative bound
+    before the first frame); without it the stream is materialized and
+    compressed by compress_tiled (or, with ``async_engine``, run through
+    the engine on the exact range).  Returns (blob, stats); blob is None
+    when writing to ``sink`` (a binary writer or a filesystem path).
+
+    ``async_engine=True`` overlaps frame ingestion, the device work (on
+    the caller's thread) and the host pack on three stages
+    (core/stream_engine.py) with the same bytes.  With a path ``sink``
+    the run keeps a write-ahead journal at ``<sink>.journal``;
+    ``resume=True`` finishes a crashed run from its last checkpoint,
+    byte-identical to an uninterrupted one, reading frames from the
+    journal's ``resume_from`` on (``pairs`` may be a callable
+    ``pairs(t_start) -> iterable``; an iterable is skipped forward).
+    ``faults`` (core/faults.py FaultPlan) and ``stage_timeout`` (seconds,
+    or REPRO_STAGE_TIMEOUT) are the engine's fault-injection and
+    watchdog hooks.  ``autotune`` is not ported (ROADMAP Queue 1 item
+    11)."""
+    cfg = cfg or compressor.CompressionConfig()
+    compressor.refuse_unported(cfg, autotune)
+    grid = grid or cfg.tiling or TileGrid()
+    if not isinstance(grid, TileGrid):
+        raise TypeError(f"tiling must be a TileGrid, got {grid!r}")
+    grid.validate()
+    dev = compressor.resolve_device(device)
+    from . import stream_engine
+
+    if value_range is None:
+        if resume:
+            raise ValueError(
+                "resume=True needs an explicit value_range: the range "
+                "fixes the fixed-point scale, and a resumed run must "
+                "derive bit-identical parameters without re-reading "
+                "already-compressed frames")
+        src = pairs(0) if callable(pairs) else pairs
+        frames = [(np.asarray(uf, np.float32), np.asarray(vf, np.float32))
+                  for uf, vf in src]
+        if not async_engine:
+            u = np.stack([f[0] for f in frames])
+            v = np.stack([f[1] for f in frames])
+            return compress_tiled(u, v, cfg, grid, sink=sink, device=dev)
+        lo = min(min(float(uf.min()), float(vf.min())) for uf, vf in frames)
+        hi = max(max(float(uf.max()), float(vf.max())) for uf, vf in frames)
+        pairs = frames
+        value_range = (lo, hi)
+
+    return stream_engine.run(pairs, cfg, grid, value_range, sink,
+                             async_engine=async_engine, resume=resume,
+                             faults=faults, stage_timeout=stage_timeout,
+                             device=dev)
 
 
 # ----------------------------------------------------------------------
@@ -907,16 +1019,54 @@ def read_plan(src, region=None):
     return _plan_entries(hdr, region)
 
 
+@dataclasses.dataclass
+class DecodeReport:
+    """What a degraded decode could and could not recover.
+
+    ``missing_units`` holds one {"key", "box", "error"} dict per unit
+    that failed its checksum or could not be read; its voxels are holes
+    (0).  ``retries`` is the per-site :func:`faults.retry_stats` snapshot
+    when the decode finished, so a decode that succeeded only on retries
+    does not look like a clean one."""
+
+    n_units: int = 0                 # units the region plan touched
+    n_decoded: int = 0
+    missing_units: list = dataclasses.field(default_factory=list)
+    retries: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def complete(self) -> bool:
+        return not self.missing_units
+
+    def hole_mask(self, region):
+        """Bool mask over ``region`` of the voxels lost to missing units
+        (True = hole)."""
+        rt0, rt1, ri0, ri1, rj0, rj1 = region
+        mask = np.zeros((rt1 - rt0, ri1 - ri0, rj1 - rj0), dtype=bool)
+        for m in self.missing_units:
+            t0, t1, i0, i1, j0, j1 = m["box"]
+            mask[max(t0, rt0) - rt0: max(min(t1, rt1) - rt0, 0),
+                 max(i0, ri0) - ri0: max(min(i1, ri1) - ri0, 0),
+                 max(j0, rj0) - rj0: max(min(j1, rj1) - rj0, 0)] = True
+        return mask
+
+
 def decompress_tiled(src, region=None, *, device=None, degraded=False):
     """Decode a tiled container (the whole field, or ``region`` = (t0,
     t1, i0, i1, j0, j1)) from bytes, a path or a ContainerSource: reads
     only the units whose owned boxes overlap the region, one range read
-    a unit.  Returns (u, v) float32 numpy arrays of the region."""
-    if degraded:
-        raise _not_ported("degraded tiled reads (degraded=True)")
+    a unit.  Returns (u, v) float32 numpy arrays of the region.  A
+    region decode goes through the decoded-unit cache
+    (analysis/query.py); a full decode streams unit by unit past it.
+
+    ``degraded=True`` turns per-unit damage (checksum mismatch, short
+    read) into a report: the return is ``(u, v, DecodeReport)`` with the
+    damaged units' voxels left 0.  A corrupt footer still raises (run
+    ``encode.salvage_container`` first)."""
     dev = compressor.resolve_device(device)
     from ..analysis import query
 
+    report = DecodeReport()
     with _source_of(src) as source:
         hdr = source.header()
         version = hdr.get("version", 1)
@@ -940,8 +1090,29 @@ def decompress_tiled(src, region=None, *, device=None, degraded=False):
         ex = pipeline.executor_from_header(hdr, dev)
         u_out = np.zeros((rt1 - rt0, ri1 - ri0, rj1 - rj0), dtype=np.float32)
         v_out = np.zeros_like(u_out)
-        for box, u_rec, v_rec in query.fetch_decoded_units(
-                source, ex, _plan_entries(hdr, region)):
+        entries = _plan_entries(hdr, region)
+        report.n_units = len(entries)
+        failures = [] if degraded else None
+        if (rt0, rt1, ri0, ri1, rj0, rj1) == (0, T, 0, H, 0, W):
+            # a full decode: one unit resident at a time, and the cache
+            # left alone (a whole field of patches would evict every
+            # entry that has a chance of reuse)
+            def decoded_iter():
+                for entry in entries:
+                    try:
+                        uh, secs = source.unit(entry)
+                        u_rec, v_rec = ex.decode_unit(uh, secs)
+                    except encode.ContainerError as e:
+                        if failures is None:
+                            raise
+                        failures.append((entry, e))
+                        continue
+                    yield tuple(uh["box"]), u_rec, v_rec
+            decoded = decoded_iter()
+        else:
+            decoded, _ = query.fetch_decoded_units(source, ex, entries,
+                                                   failures=failures)
+        for box, u_rec, v_rec in decoded:
             t0, t1, i0, i1, j0, j1 = box
             ct0, ct1 = max(t0, rt0), min(t1, rt1)
             ci0, ci1 = max(i0, ri0), min(i1, ri1)
@@ -952,10 +1123,22 @@ def decompress_tiled(src, region=None, *, device=None, degraded=False):
                    slice(cj0 - rj0, cj1 - rj0))
             u_out[dst] = u_rec[src_sl]
             v_out[dst] = v_rec[src_sl]
+            report.n_decoded += 1
+        if failures:
+            report.missing_units = [
+                {"key": tuple(e["key"]), "box": tuple(e["box"]),
+                 "error": str(err)} for e, err in failures]
+    if degraded:
+        from . import faults
+
+        report.retries = faults.retry_stats()
+        return u_out, v_out, report
     return u_out, v_out
 
 
-def decompress_region(src, region, *, device=None):
+def decompress_region(src, region, *, device=None, degraded=False):
     """Random-access decode of (t0, t1, i0, i1, j0, j1): reads only the
-    units covering the region."""
-    return decompress_tiled(src, region=region, device=device)
+    units covering the region (cached across repeated queries).
+    ``degraded=True`` reports damaged units instead of raising."""
+    return decompress_tiled(src, region=region, device=device,
+                            degraded=degraded)

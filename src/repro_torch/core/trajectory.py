@@ -5,6 +5,8 @@ predicate holds (sos.py).  FC_t counts time-slice faces whose predicate
 differs between the original and the reconstruction, FC_s the slab
 faces; both are 0 when every trajectory is preserved.  The predicates
 run as int64 torch on ``device``, independent of the kernels.
+``tet_crossings`` / ``segment_edges`` turn the predicate tables into
+the zero set's segments (analysis/extraction.py).
 """
 from __future__ import annotations
 
@@ -33,6 +35,46 @@ def check_lemma1(crossed, t_lo: int = 0):
             f"(first: slab {t_lo + int(ci[0])}, tet {int(ti[0])}, "
             f"count {int(n_crossed[ci[0], ti[0]])}); SoS predicates are "
             f"inconsistent upstream")
+
+
+def _frame_chunk(n_faces: int, budget: int = 1 << 22) -> int:
+    """Frames per batch so transient gathers stay ~tens of MB."""
+    return max(1, budget // max(n_faces, 1))
+
+
+def tet_crossings(tables, shape, t_lo: int, t_hi: int):
+    """Crossed state (C, Ntet, 4) bool of every tet face of slabs [t_lo,
+    t_hi), gathered from face-predicate tables (host numpy).  Raises
+    Lemma1ViolationError on a tet with a count outside {0, 2}."""
+    T, H, W = shape
+    family, index = grid.tet_face_map(H, W)
+    sl = tables["slice"]
+    sb = tables["slab"]
+    idx_slice = np.where(family == 2, 0, index)        # keep gathers in-range
+    idx_slab = np.where(family == 2, index, 0)
+    c_bot = sl[t_lo:t_hi][:, idx_slice]                # (C, Ntet, 4)
+    c_top = sl[t_lo + 1: t_hi + 1][:, idx_slice]
+    c_slab = sb[t_lo:t_hi][:, idx_slab]
+    crossed = np.where(family == 0, c_bot,
+                       np.where(family == 1, c_top, c_slab))
+    check_lemma1(crossed, t_lo)
+    return crossed
+
+
+def segment_edges(crossed, t_lo, shape):
+    """(E, 2) int64 global face-id pairs, one per tet of slabs [t_lo,
+    t_lo + C) with two crossed faces, in tet order."""
+    T, H, W = shape
+    family, index = grid.tet_face_map(H, W)
+    ci, ti = np.nonzero(crossed.sum(axis=2) == 2)
+    if len(ci) == 0:
+        return np.empty((0, 2), dtype=np.int64)
+    rows = crossed[ci, ti]                     # (M, 4), exactly 2 True
+    _, slots = np.nonzero(rows)
+    slots = slots.reshape(-1, 2)
+    return grid.tet_face_fids(
+        family[ti[:, None], slots], index[ti[:, None], slots],
+        (t_lo + ci)[:, None], H, W)
 
 
 def face_predicate_tables(ufp, vfp, device="cpu") -> dict:

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports no JAX and nothing of the JAX
 package, it runs on CUDA unless asked for the CPU, and it refuses the
 options whose code paths are not ported."""
+import io
 import os
 import re
 import subprocess
@@ -73,6 +74,28 @@ def test_default_device_needs_cuda(no_cuda, field):
         repro_torch.compress(u, v, device="cuda")
 
 
+def test_stream_and_read_entry_points_need_cuda(no_cuda, field):
+    from repro_torch import analysis
+    from repro_torch.core import fixedpoint
+
+    u, v = field
+    vr = (float(min(u.min(), v.min())), float(max(u.max(), v.max())))
+    grid = repro_torch.TileGrid(4, 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
+                                    grid, value_range=vr)
+    blob, _ = repro_torch.compress_stream(
+        zip(u, v), repro_torch.CompressionConfig(), grid, value_range=vr,
+        device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.decompress_tiled(blob, degraded=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis.decode_for_track(blob, 0)
+    _, ufp, vfp = fixedpoint.to_fixed(u, v)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis.extract(ufp, vfp)
+
+
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(backend="numpy"), ValueError, "backend"),
     (dict(tiling=repro_torch.TileGrid(halo=0)), ValueError, "halo"),
@@ -90,17 +113,20 @@ def test_unported_config_refused(field, kw, exc, match):
 
 
 def test_streaming_and_degraded_reads_refused(field):
-    from repro_torch.core import tiling
-
+    """Streaming and degraded reads run (ROADMAP item 8); what stays
+    refused: a stream with autotune (item 11), and resume without a
+    path sink (the journal lives next to the container)."""
     u, v = field
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tiling.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
-                               repro_torch.TileGrid(4, 4, 2))
-    blob, _ = repro_torch.compress_tiled(u, v, repro_torch.CompressionConfig(),
-                                         repro_torch.TileGrid(4, 4, 2),
-                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        repro_torch.decompress_tiled(blob, device="cpu", degraded=True)
+    vr = (float(min(u.min(), v.min())), float(max(u.max(), v.max())))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        repro_torch.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
+                                    repro_torch.TileGrid(4, 4, 2),
+                                    autotune=True, device="cpu")
+    with pytest.raises(ValueError, match="path"):
+        repro_torch.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
+                                    repro_torch.TileGrid(4, 4, 2),
+                                    value_range=vr, sink=io.BytesIO(),
+                                    resume=True, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(autotune=True), dict(target_ratio=8.0)])

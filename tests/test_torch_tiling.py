@@ -223,11 +223,25 @@ def test_msgpack_writer_equals_msgpack_python_on_footer_types():
     assert _msgpack.packb(obj) == msgpack.packb(obj, use_bin_type=True)
 
 
-def test_not_ported_options_name_item_8(ref_blobs):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tiling.compress_stream(iter([]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        encode.salvage_container(ref_blobs["host"])
+def test_not_ported_options_name_item_8(field, ref_blobs, tmp_path):
+    """Item 8 (streaming, salvage) is ported: salvage of a whole
+    container keeps every unit, and what a stream still refuses is
+    autotune (item 11) and resume without a path sink or a value
+    range."""
+    u, v = field
+    blob, rep = encode.salvage_container(ref_blobs["host"])
+    assert rep["units_recovered"] == 32 and rep["units_dropped"] == 0
+    assert np.array_equal(repro_torch.decompress(blob, device="cpu")[0],
+                          repro_torch.decompress(ref_blobs["host"],
+                                                 device="cpu")[0])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tiling.compress_stream(iter([]), autotune=True, device="cpu")
+    with pytest.raises(ValueError, match="path"):
+        tiling.compress_stream(zip(u, v), value_range=(-1.0, 1.0),
+                               resume=True, device="cpu")
+    with pytest.raises(ValueError, match="value_range"):
+        tiling.compress_stream(zip(u, v), sink=str(tmp_path / "c.cptt"),
+                               resume=True, device="cpu")
 
 
 # ----------------------------------------------------------------------
