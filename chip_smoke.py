@@ -41,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught):
               6, batch_units off, and the field whose verify rounds fire)
               and for compress_stream (serial and async, versions 4, 5
               and 6), and a salvage of a card container cut mid-frame
-              == the CPU's
+              == the CPU's; a tuned plan (monolithic and tiled), a
+              stream with autotune=True, the target-ratio search (the
+              uniform run sufficient, and the relax ladder) and the
+              sz3-like / cpsz-like baselines on the card == on the CPU
 4. main    -- compress -> decompress at full size with each codec: the
               SCF analogue vortex_street(T=120, H=100, W=225) and an
               archive field vortex_street(T=64, H=512, W=512), with the
@@ -78,7 +81,7 @@ Phases (any failure exits non-zero; nothing is caught):
               frames resident after every frame within the scheduler's
               bound, seconds, the async / serial ratio and the device
               busy share under torch.profiler; then an async
-              device-codec stream of T = 192 (resident frames at the
+              device-codec stream of T = 128 (resident frames at the
               bound, peak device memory within 5 % of the 64-frame run)
 4f. recovery -- at the SCF analogue a fresh interpreter SIGKILLs itself
               before a mid-stream frame and before the last frame, on
@@ -95,6 +98,20 @@ Phases (any failure exits non-zero; nothing is caught):
               decode_for_track's polyline == the extraction's bitwise, a
               warm query reading less than a cold one, seconds, units
               read and the launches of the cold query
+4h. autotune -- a calibration on the card at the default shapes (into
+              a temporary table under build/): the fitted (c0, c1) of
+              the ten stages; tune_config with measure-verify at the
+              SCF analogue and at 64x512x512: predicted and measured
+              seconds of the three measured candidates, the chosen
+              plan's bytes == the same plan set by hand, the pointwise
+              bound and FC = 0, the launches, its seconds against the
+              default monolithic plan's; tune_stream and a 64-frame
+              compress_stream(autotune=True) == compress_tiled of the
+              chosen plan; target_ratio at 1.5x the SCF uniform ratio
+              (every vertex within its own policy bound, FC = 0, the
+              rungs, the ratio reached); each baseline of
+              repro_torch.baselines at the SCF analogue: ratio,
+              seconds, FC_t / FC_s and launches
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -160,11 +177,16 @@ SIZES = {
               ((64, 512, 512), ("host", "device"))],
     "tile_grid": (128, 128, 32),
     # streamed runs (the tiled phase's archive field) and the longer
-    # stream's length; the recovery children's kill points (frames) at
-    # the SCF analogue: mid-stream and before the last frame
+    # stream's length (four windows: the steady state's 97 resident
+    # frames); the recovery children's kill points (frames) at the SCF
+    # analogue: mid-stream and before the last frame
     "stream": (64, 512, 512),
-    "stream_long": 192,
+    "stream_long": 128,
     "kill_at": (100, 119),
+    # autotune / rate / baseline parity on the card and the CPU
+    "parity_autotune": (6, 32, 32),
+    # the rate search's target at full width, in units of the uniform ratio
+    "rate_factor": 1.5,
 }
 
 # the host codec's container bytes at the main sizes with zlib (the card's
@@ -694,6 +716,7 @@ def phase_parity(dev):
     parity_nonfinite(dev, fields[0][1], fields[0][2])
     parity_tiled(dev, fields[0][1], fields[0][2])
     parity_stream(dev, fields[0][1], fields[0][2])
+    parity_autotune(dev)
 
 
 def parity_tiled(dev, u, v):
@@ -781,6 +804,109 @@ def parity_stream(dev, u, v):
             f"salvages to the CPU's bytes ({len(s_dev)} B, "
             f"{rep_dev['units_recovered']} of {len(units)} units); decode "
             "equal")
+
+
+def fixed_table(kind, mono):
+    """A fixed calibration table for ``kind``; ``mono`` scales the
+    monolithic stages' coefficients (1000 makes a tiled plan win)."""
+    from repro_torch import autotune
+    from repro_torch.autotune import costmodel
+
+    return autotune.CalibrationTable(device_kind=kind, coeffs={
+        (kind, st): (1e-4 * (i + 1) * (mono if i < 5 else 1.0),
+                     1e-8 * (i + 2) * (mono if i < 5 else 1.0))
+        for i, st in enumerate(costmodel.STAGES)})
+
+
+class TablePath:
+    """Points the autotune's default calibration-table path at ``path``
+    for a run (``compress_stream(autotune=True)`` loads its table from
+    there), so nothing is read or written outside the checkout."""
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def __enter__(self):
+        import importlib
+
+        self._mod = importlib.import_module("repro_torch.autotune.calibrate")
+        self._orig = self._mod.default_table_path
+        self._mod.default_table_path = lambda: self.path
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.default_table_path = self._orig
+
+
+def parity_autotune(dev):
+    """Autotuned, rate-targeted and baseline bytes on the card == on the
+    CPU, on small fields: the plan a fixed table picks (monolithic, and
+    tiled with the device codec), a stream with autotune=True, the
+    target-ratio search with the uniform run sufficient and with the
+    relax ladder, and sz3-like / cpsz-like sizes and reconstructions."""
+    import tempfile
+
+    import repro_torch as rt
+    from repro_torch import autotune, baselines
+    from repro_torch.data import synthetic
+
+    T, H, W = SIZES["parity_autotune"]
+    rng = np.random.default_rng(3)
+    u = np.cumsum(rng.normal(size=(T, H, W)).astype(np.float32), axis=0)
+    v = u[::-1].copy()
+    devices = (dev, torch.device("cpu"))
+    for mono in (1.0, 1000.0):
+        cfg = rt.CompressionConfig(eb=1e-2)
+        plans, blobs = [], []
+        for d in devices:
+            tuned = autotune.tune_config(
+                u, v, cfg, table=fixed_table(autotune.device_kind(d), mono),
+                measure=False, device=d)
+            plans.append(autotune.last_report()["chosen"])
+            blobs.append(rt.compress(u, v, tuned, device=d)[0])
+        assert plans[0] == plans[1] and blobs[0] == blobs[1], \
+            f"parity autotune {plans}: card and CPU blobs differ"
+        say(f"parity autotune {(T, H, W)} (monolithic stages x{mono}): "
+            f"plan {plans[0]}, card blob == CPU blob ({len(blobs[0])} B)")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        blobs = []
+        for i, d in enumerate(devices):
+            path = Path(tmp) / f"{i}.json"
+            autotune.save_table(fixed_table(autotune.device_kind(d), 1.0),
+                                str(path))
+            with TablePath(path):
+                b, st = rt.compress_stream(frames(u, v),
+                                           rt.CompressionConfig(eb=1e-2),
+                                           autotune=True, n_frames_hint=T,
+                                           device=d)
+            blobs.append(b)
+        assert blobs[0] == blobs[1], "parity stream autotune: blobs differ"
+        say(f"parity stream autotune {(T, H, W)}: plan "
+            f"{autotune.last_report()['chosen']}, card blob == CPU blob "
+            f"({len(blobs[0])} B, async {st['async_engine']})")
+    gu, gv = synthetic.double_gyre(T=T, H=H, W=H)
+    cfg = rt.CompressionConfig(eb=1e-3, mode="abs")
+    uniform = rt.compress(gu, gv, cfg, device="cpu")[1]["ratio"]
+    for factor in (0.5, 1.5):
+        b_dev, s_dev = rt.compress(gu, gv, cfg, device=dev,
+                                   target_ratio=uniform * factor)
+        b_cpu, s_cpu = rt.compress(gu, gv, cfg, device="cpu",
+                                   target_ratio=uniform * factor)
+        rec = s_dev["rate_target"]
+        assert b_dev == b_cpu and rec == s_cpu["rate_target"], \
+            f"parity rate x{factor}: card and CPU differ"
+        say(f"parity rate {gu.shape} target {uniform * factor:.4f} "
+            f"(x{factor} uniform): card blob == CPU blob ({len(b_dev)} B), "
+            f"record equal (rungs {rec.get('rungs_tried')}, met "
+            f"{rec['met']})")
+    for name in ("sz3-like", "cpsz-like"):
+        a = baselines.REGISTRY[name](u, v, eb=1e-2, device=dev)
+        b = baselines.REGISTRY[name](u, v, eb=1e-2, device="cpu")
+        assert a["comp_bytes"] == b["comp_bytes"] and all(
+            np.array_equal(a[k].view(np.uint32), b[k].view(np.uint32))
+            for k in ("u_rec", "v_rec")), f"parity {name}: card != CPU"
+        say(f"parity {name} {u.shape}: card size == CPU size "
+            f"({a['comp_bytes']} B), reconstructions bitwise equal")
 
 
 def frames(u, v):
@@ -1054,7 +1180,7 @@ def check_run(tag, codec, run, u, v, dev, bound=None):
         f"{stats['lossless_frac']:.4f}")
     if bound is None:
         err = metrics.max_abs_error(u, v, ur, vr)
-        say(f"{tag}: max err {err!r} <= eb_abs "
+        say(f"{tag}: max err {float(err)!r} <= eb_abs "
             f"{stats['eb_abs']!r}; FC_t {fc['FC_t']} FC_s {fc['FC_s']} "
             f"(CP_t {fc['CP_t_orig']}, CP_slab {fc['CP_slab_orig']})")
         assert err <= stats["eb_abs"], "pointwise bound violated"
@@ -1676,7 +1802,7 @@ def phase_stream(dev, tiled_runs):
     TileGrid(128, 128, 32), each codec, each engine: the tiled phase's
     bytes, one launch per chunk, every kernel on the caller's thread, the
     resident-frame bound, seconds, the async / serial ratio and the
-    device busy share; then one async device-codec stream of T = 192.
+    device busy share; then one async device-codec stream of T = 128.
     Returns the host-codec stream blob."""
     import repro_torch as rt
     from repro_torch.data import synthetic
@@ -1937,6 +2063,207 @@ def phase_query(dev, tiled_runs):
 
 
 # ----------------------------------------------------------------------
+# phase 4h: plan autotuning, rate-targeted compression, the baselines
+# ----------------------------------------------------------------------
+
+def check_path_launches(tag, codec, counts):
+    """Every kernel of a compress -> decompress launched at least once
+    (the whole-field or the unit-batched entry), the per-frame stepper
+    never."""
+    pairs = [("K1", ("lorenzo_residual", "lorenzo_residual_units")),
+             ("K2", ("verify_faces", "verify_faces_units")),
+             ("K3", ("sl_decode", "sl_decode_units")),
+             ("K4", ("sl_step_batched",))]
+    if codec == "device":
+        pairs.append(("K5", ("symbol_histogram",)))
+    for k, names in pairs:
+        assert sum(counts[n] for n in names) > 0, \
+            f"{tag}: {k} ({' / '.join(names)}) not launched"
+    assert counts["sl_step"] == 0, f"{tag}: the per-frame stepper ran"
+
+
+def counted(fns, fn):
+    """(fn(), launches of every kernel in the call)."""
+    reset_counts(fns)
+    out = fn()
+    return out, read_counts(fns)
+
+
+def hand_set(cfg, tuned):
+    """The tuned plan configured by hand from its fields."""
+    import repro_torch as rt
+
+    g = tuned.tiling
+    return dataclasses.replace(
+        cfg, codec=tuned.codec, batch_units=tuned.batch_units,
+        batch_cap=tuned.batch_cap, q_in_frames=tuned.q_in_frames,
+        q_out_units=tuned.q_out_units,
+        tiling=None if g is None else rt.TileGrid(
+            tile_h=g.tile_h, tile_w=g.tile_w, window_t=g.window_t))
+
+
+def timed_compress(dev, u, v, cfg):
+    """Host-clock seconds of one synchronized compress (a second call)."""
+    import repro_torch as rt
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob, _ = rt.compress(u, v, cfg, device=dev)
+    torch.cuda.synchronize()
+    return blob, time.perf_counter() - t0
+
+
+def phase_autotune(dev, main):
+    """Calibration on the card, measured tunes at the two main sizes, a
+    tuned 64-frame stream, the rate search at the SCF analogue and the
+    baselines there."""
+    import tempfile
+
+    import repro_torch as rt
+    from repro_torch import autotune, baselines
+    from repro_torch.autotune import costmodel
+    from repro_torch.core import compressor, ebpolicy, encode, fixedpoint, \
+        trajectory
+    from repro_torch.data import synthetic
+
+    fns = wrappers()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+            TablePath(Path(tmp) / "autotune_calib.json") as tp:
+        t0 = time.perf_counter()
+        table = autotune.calibrate(path=tp.path, device=dev)
+        calib_s = time.perf_counter() - t0
+        kind = autotune.device_kind(dev)
+        assert set(table.coeffs) == {(kind, st) for st in costmodel.STAGES}, \
+            sorted(table.coeffs)
+        assert all(c0 >= 0 and c1 >= 0 for c0, c1 in table.coeffs.values())
+        say(f"autotune calibration on the card at {table.meta['shapes']} "
+            f"in {calib_s:.2f} s: (c0 s a dispatch, c1 s an element) "
+            + json.dumps({st: table.coeffs[kind, st]
+                          for st in costmodel.STAGES}))
+
+        for T, H, W in SIZES["main"]:
+            u, v = synthetic.vortex_street(T=T, H=H, W=W)
+            cfg = rt.CompressionConfig(**scf_meta(T, H, W))
+            tag = f"autotune {T}x{H}x{W}"
+            t0 = time.perf_counter()
+            tuned = autotune.tune_config(u, v, cfg, table=table, device=dev)
+            tune_s = time.perf_counter() - t0
+            rep = autotune.last_report()
+            measured = [p for p in rep["plans"] if p["measured_s"] is not None]
+            assert len(measured) == 3 and rep["plans"][0]["chosen"]
+            sample = autotune._sample(u, v)[0].shape
+            say(f"{tag}: tuned in {tune_s:.2f} s over "
+                f"{len(rep['plans'])} candidates; measured on {sample}: "
+                + "; ".join(f"{p['plan']} predicted {p['predicted_s']:.6f} s "
+                            f"(full field), measured {p['measured_s']:.6f} s"
+                            for p in measured)
+                + f"; chosen {rep['chosen']}")
+            (blob, stats), enc = counted(
+                fns, lambda: rt.compress(u, v, tuned, device=dev))
+            (ur, vr), dec = counted(fns, lambda: rt.decompress(blob,
+                                                               device=dev))
+            launches = {n: enc[n] + dec[n] for n in enc}
+            check_path_launches(tag, tuned.codec, launches)
+            check_guarantees(tag, u, v, ur, vr, stats, dev)
+            hand = hand_set(cfg, tuned)
+            blob_hand, chosen_s = timed_compress(dev, u, v, hand)
+            assert blob_hand == blob, f"{tag}: tuned bytes != hand-set bytes"
+            mono = next(r for r in main if r["shape"] == (T, H, W)
+                        and r["codec"] == "host")
+            say(f"{tag}: chosen {rep['chosen']} bytes == the plan set by "
+                f"hand ({len(blob)} B, ratio {stats['ratio']:.4f}); encode "
+                f"{chosen_s:.3f} s against the default monolithic plan's "
+                f"{mono['enc_s']:.3f} s (ratio {mono['ratio']:.4f}), second "
+                f"call, host clock; launches compress {json.dumps(enc)}, "
+                f"decompress {json.dumps(dec)}")
+
+        T, H, W = SIZES["stream"]
+        u, v = synthetic.vortex_street(T=T, H=H, W=W)
+        cfg = rt.CompressionConfig(**scf_meta(T, H, W))
+        tag = f"autotune stream {T}x{H}x{W}"
+        tuned, cand = autotune.tune_stream((T, H, W), cfg, table=table,
+                                           device=dev)
+        chosen = autotune.last_report()["chosen"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (blob, stats), counts = counted(fns, lambda: rt.compress_stream(
+            frames(u, v), cfg, autotune=True, n_frames_hint=T,
+            value_range=value_range(u, v), device=dev))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        assert autotune.last_report()["chosen"] == chosen
+        assert stats["async_engine"] is cand.async_engine
+        want, _ = rt.compress_tiled(u, v, tuned, tuned.tiling, device=dev)
+        assert blob == want, f"{tag}: stream bytes != compress_tiled's"
+        (ur, vr), dec = counted(fns, lambda: rt.decompress(blob, device=dev))
+        check_path_launches(tag, tuned.codec,
+                            {n: counts[n] + dec[n] for n in counts})
+        check_guarantees(tag, u, v, ur, vr, stats, dev)
+        say(f"{tag}: tune_stream chose {chosen} (async "
+            f"{cand.async_engine}); compress_stream(autotune=True) "
+            f"{stream_s:.3f} s host clock, bytes == compress_tiled of the "
+            f"chosen plan ({len(blob)} B, ratio {stats['ratio']:.4f}, "
+            f"{stats['n_units']} units); launches {json.dumps(counts)}")
+
+    T, H, W = SIZES["main"][0]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    cfg = rt.CompressionConfig(**scf_meta(T, H, W))
+    uni = next(r for r in main if r["shape"] == (T, H, W)
+               and r["codec"] == "host")
+    target = SIZES["rate_factor"] * uni["ratio"]
+    tag = f"rate {T}x{H}x{W}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (blob, stats), enc = counted(fns, lambda: rt.compress(
+        u, v, cfg, target_ratio=target, device=dev))
+    rate_s = time.perf_counter() - t0
+    rec = stats["rate_target"]
+    (ur, vr), dec = counted(fns, lambda: rt.decompress(blob, device=dev))
+    check_path_launches(tag, cfg.codec, {n: enc[n] + dec[n] for n in enc})
+    header = encode.unpack(blob)[0]
+    bound = None
+    if "eb_policy" in header:
+        pol = ebpolicy.policy_from_spec(header["eb_policy"])
+        bound = ebpolicy.field_bounds(pol, u.shape,
+                                      compressor._eb_factor(u, v, cfg))
+    check_guarantees(tag, u, v, ur, vr, stats, dev, bound)
+    say(f"{tag}: target {target:.4f} ({SIZES['rate_factor']} x the uniform "
+        f"{uni['ratio']:.4f}): reached {rec['achieved_ratio']:.4f}, met "
+        f"{rec['met']}, relax {rec['relax']}, seed relax "
+        f"{rec.get('seed_relax')}, rungs {rec.get('rungs_tried')}, "
+        f"protected {rec['n_protected']} of {rec.get('n_units')} units; "
+        f"{rate_s:.3f} s host clock (one call: uniform run, probe, "
+        f"tracks, rungs); launches {json.dumps(enc)}")
+
+    scale = fixedpoint.to_fixed(u, v)[0]
+    for name, fn in baselines.REGISTRY.items():
+        out, counts = counted(fns, lambda: fn(u, v, eb=1e-2, device=dev))
+        fc = trajectory.false_cases(u, v, out["u_rec"], out["v_rec"], scale,
+                                    dev)
+        err = np.maximum(np.abs(out["u_rec"].astype(np.float64) - u),
+                         np.abs(out["v_rec"].astype(np.float64) - v)).max()
+        if name in ("sz3-like", "cpsz-like"):
+            assert counts["lorenzo_residual"] > 0, f"{name}: K1 not launched"
+        if name == "cpsz-like":
+            assert counts["face_crossed"] > 0 and fc["FC_t"] == 0, \
+                f"{name}: {counts['face_crossed']} face_crossed, {fc}"
+        if out["lossless"]:
+            assert err == 0 and fc["FC_t"] == fc["FC_s"] == 0
+        say(f"baseline {name} {T}x{H}x{W}: ratio {out['ratio']:.4f} "
+            f"({out['comp_bytes']} B), compress {out['t_compress']:.4f} s, "
+            f"decompress {out['t_decompress']:.4f} s, max err {float(err)!r} "
+            f"(eb_abs {out.get('eb_abs', 0.0)!r}), FC_t {fc['FC_t']} FC_s "
+            f"{fc['FC_s']} (CP_t {fc['CP_t_orig']}, CP_slab "
+            f"{fc['CP_slab_orig']}); launches "
+            f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    say(f"baseline ours {T}x{H}x{W} (host codec, phase 4): ratio "
+        f"{uni['ratio']:.4f}, encode {uni['enc_s']:.3f} s, decode "
+        f"{uni['dec_s']:.3f} s, FC_t 0 FC_s 0")
+    say(f"autotune phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
 # phase 5: the kernel table at the main path's shapes
 # ----------------------------------------------------------------------
 
@@ -2194,6 +2521,7 @@ def main() -> int:
     stream_blob = phase_stream(dev, tiled_runs)
     phase_recovery(dev, stream_blob, tiled_runs)
     phase_query(dev, tiled_runs)
+    phase_autotune(dev, main_runs)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

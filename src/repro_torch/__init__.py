@@ -6,6 +6,11 @@
     blob, stats = repro_torch.compress_stream(frames, cfg, TileGrid(...),
                                               value_range=(lo, hi))
     u_reg, v_reg = repro_torch.decompress_region(blob, region)
+    blob, stats = repro_torch.compress(u, v, cfg, autotune=True)
+    blob, stats = repro_torch.compress(u, v, cfg, target_ratio=20.0)
+
+(``repro_torch.autotune``: the plan search and rate allocation;
+``repro_torch.baselines``: the comparison compressors.)
 
 The entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.  On a CUDA tensor the three hot ops launch the

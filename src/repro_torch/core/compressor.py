@@ -26,10 +26,16 @@ random-access CPTT1 container (core/tiling.py: version 4, 5 with the
 device codec, 6 with an adaptive policy, the track index in its footer
 unless ``track_index=False``); ``decompress`` reads it too.
 
+``autotune=True`` runs the plan the cost model picks for the field
+(repro_torch.autotune: the same bytes as that plan set by hand);
+``target_ratio=`` searches a two-valued adaptive policy that reaches the
+ratio with the trajectory-covering units kept at ``eb``
+(autotune/rate.py).
+
 ``CompressionConfig`` keeps the JAX package's fields and defaults.  The
-options whose code paths are not ported raise NotImplementedError
-naming their ROADMAP item; ``backend`` must stay None (the device picks
-kernel or plain version).
+legacy ``fused=False`` binding raises NotImplementedError naming its
+ROADMAP item; ``backend`` must stay None (the device picks kernel or
+plain version).
 """
 from __future__ import annotations
 
@@ -90,22 +96,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def refuse_unported(cfg: CompressionConfig, autotune=False,
-                    target_ratio=None):
+def refuse_unported(cfg: CompressionConfig):
     """Raise for the config options this package does not run."""
     if cfg.backend is not None:
         raise ValueError(
             f"backend={cfg.backend!r}: repro_torch has no backend names; "
             "the tensor's device picks the kernel (CUDA) or its plain "
             "version (CPU) -- leave backend=None")
-    if target_ratio is not None:
-        raise NotImplementedError(
-            "target_ratio (rate-targeted eb policies) is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 11)")
-    if autotune:
-        raise NotImplementedError(
-            "autotune is not ported to repro_torch yet (ROADMAP Queue 1 "
-            "item 11)")
     if cfg.fused is False:
         raise NotImplementedError(
             "the legacy fused=False binding is not ported to repro_torch "
@@ -145,7 +142,14 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
     """Compress a (T, H, W) pair of float fields.  Returns (blob, stats)."""
     if cfg is None:
         cfg = CompressionConfig()
-    refuse_unported(cfg, autotune, target_ratio)
+    refuse_unported(cfg)
+    if target_ratio is not None:
+        from ..autotune import rate
+        return rate.compress_with_target(u, v, cfg, float(target_ratio),
+                                         device=device)
+    if autotune:
+        from .. import autotune as autotune_mod
+        cfg = autotune_mod.tune_config(u, v, cfg, device=device)
     if cfg.tiling is not None:
         from . import tiling
         return tiling.compress_tiled(u, v, cfg, cfg.tiling, device=device)

@@ -12,17 +12,25 @@ determinants, then the f64 division and ``floor`` with the relative
 margin 2^-40 in the same op order (``_rotation_ebs_from_dets``), then a
 gather-min over the static incidence table.  Faces are processed a few
 slabs at a time in place of ``lax.scan``.
+
+``derive_slice_eb`` is the bound of the time-slice faces alone (the
+cpSZ-like baseline's), and ``all_face_predicates`` the SoS predicate of
+every face through ``backend.face_crossed`` (K2 on CUDA).
 """
 from __future__ import annotations
 
 import torch
 
-from . import grid, sos
+from . import backend, grid, sos
 
 _MARGIN = 1.0 - 2.0 ** -40
 _BIG = 2.0 ** 62
 # faces per chunk of frames / slabs (bounds the transient (C, F, 3) gathers)
 _FACE_BUDGET = 1 << 22
+
+# the static tables, under the JAX package's names
+_incidence_table = grid.incidence_table
+slab_face_table = grid.slab_face_table
 
 
 def _rotation_ebs_from_dets(fu, fv, crossed, d_ab, d_bc, d_ca):
@@ -154,3 +162,49 @@ def derive_vertex_eb_units(ufp: torch.Tensor, vfp: torch.Tensor, tau: int):
                              device=ufp.device)
     return (eb.reshape(B, T, H, W), torch.cat(slice_parts).reshape(B, T, -1),
             slab_c)
+
+
+def derive_slice_eb(ufp: torch.Tensor, vfp: torch.Tensor, tau: int):
+    """Per-vertex bounds from the time-slice faces only (no slab faces):
+    the first half of ``derive_vertex_eb``, equal to the JAX package's
+    slice-only derivation of its cpSZ-like baseline.  (T, H, W) int64."""
+    T, H, W = ufp.shape
+    HW = H * W
+    tabs = grid.device_tables(H, W, str(ufp.device))
+    u2 = ufp.reshape(T, HW)
+    v2 = vfp.reshape(T, HW)
+    tids = torch.arange(T, dtype=torch.int64, device=ufp.device) * HW
+    step = max(1, _FACE_BUDGET // tabs["slice"].shape[0])
+    parts = [_faces_eb_update(u2[lo:lo + step], v2[lo:lo + step],
+                              tids[lo:lo + step], tabs["slice"], tau,
+                              tabs["slice_inc"])[0]
+             for lo in range(0, T, step)]
+    return torch.cat(parts).reshape(T, H, W)
+
+
+def all_face_predicates(ufp: torch.Tensor, vfp: torch.Tensor):
+    """SoS predicate of every face of the (T, H, W) int64 fields, through
+    ``backend.face_crossed`` a chunk of faces at a time.  Returns (slice
+    (T, Fs), slab (T-1, Fb)) bool tensors on the fields' device."""
+    T, H, W = ufp.shape
+    HW = H * W
+    tabs = grid.device_tables(H, W, str(ufp.device))
+    u_flat = ufp.reshape(-1)
+    v_flat = vfp.reshape(-1)
+    dev = ufp.device
+
+    def preds(tab, n):
+        step = max(1, _FACE_BUDGET // tab.shape[0])
+        out = []
+        for lo in range(0, n, step):
+            t = torch.arange(lo, min(lo + step, n), dtype=torch.int64,
+                             device=dev)
+            verts = (tab[None] + (t * HW)[:, None, None]).reshape(-1, 3)
+            out.append(backend.face_crossed(u_flat, v_flat, verts)
+                       .reshape(len(t), -1))
+        if not out:
+            return torch.zeros((0, tab.shape[0]), dtype=torch.bool,
+                               device=dev)
+        return torch.cat(out)
+
+    return preds(tabs["slice"], T), preds(tabs["slab"], T - 1)

@@ -40,6 +40,7 @@ container at the journal's last durable checkpoint.
 """
 from __future__ import annotations
 
+import heapq
 import io
 import os
 import struct
@@ -78,6 +79,10 @@ CHECKSUM_ALGO = "crc32"
 def frame_crc(frame: bytes) -> int:
     """CRC32 of one container frame."""
     return zlib.crc32(frame) & 0xFFFFFFFF
+
+
+def have_zstd() -> bool:
+    return zstandard is not None
 
 
 def backend_codec() -> str:
@@ -194,8 +199,81 @@ def parse_field_sections(sections: dict, shape):
 
 
 # ----------------------------------------------------------------------
-# canonical Huffman decode (host numpy, bit-exact with the JAX package)
+# canonical Huffman (host numpy, bit-exact with the JAX package): the
+# reference coder of the rate reporting and of the baselines' accounting
 # ----------------------------------------------------------------------
+
+def huffman_code_lengths(freq):
+    """Code length per symbol via the standard heap construction."""
+    items = [(int(f), i) for i, f in enumerate(freq) if f > 0]
+    if not items:
+        return np.zeros(len(freq), dtype=np.int32)
+    if len(items) == 1:
+        ln = np.zeros(len(freq), dtype=np.int32)
+        ln[items[0][1]] = 1
+        return ln
+    heap = [(f, n, (s,)) for n, (f, s) in enumerate(items)]
+    heapq.heapify(heap)
+    counter = len(heap)
+    depth = {}
+    while len(heap) > 1:
+        f1, _, s1 = heapq.heappop(heap)
+        f2, _, s2 = heapq.heappop(heap)
+        for s in s1 + s2:
+            depth[s] = depth.get(s, 0) + 1
+        counter += 1
+        heapq.heappush(heap, (f1 + f2, counter, s1 + s2))
+    ln = np.zeros(len(freq), dtype=np.int32)
+    for s, d in depth.items():
+        ln[s] = d
+    return ln
+
+
+def length_limited_lengths(freq, limit: int) -> np.ndarray:
+    """Huffman code lengths clamped to ``limit`` bits by halving the
+    frequencies until the deepest leaf fits (each pass is a valid tree;
+    the loop ends for any limit >= 8 on a 256-symbol alphabet)."""
+    freq = np.asarray(freq, dtype=np.int64)
+    lengths = huffman_code_lengths(freq)
+    while lengths.max() > limit:
+        freq = np.where(freq > 0, (freq + 1) // 2, 0)
+        lengths = huffman_code_lengths(freq)
+    return lengths
+
+
+def huffman_encode(sym):
+    """uint8 symbols -> (lengths table, packed MSB-first bits, n_symbols)."""
+    freq = np.bincount(sym, minlength=256)
+    lengths = huffman_code_lengths(freq)
+    # keep ln + intra-byte offset <= 64 for the vectorized packer
+    while lengths.max() > 56:
+        freq = np.where(freq > 0, (freq + 1) // 2, 0)
+        lengths = huffman_code_lengths(freq)
+    codes, _ = canonical_codes(lengths)
+    ln = lengths[sym].astype(np.int64)
+    cd = codes[sym].astype(np.uint64)
+    total = int(ln.sum())
+    ends = np.cumsum(ln)
+    starts = ends - ln
+    nbytes = (total + 7) // 8
+    buf = np.zeros(nbytes + 8, dtype=np.uint8)
+    # each symbol's code in a 64-bit window at its byte offset, added
+    # byte by byte in 8 passes so windows sharing a byte never collide
+    byte_off = (starts // 8).astype(np.int64)
+    bit_off = (starts % 8).astype(np.int64)
+    shift = (64 - bit_off - ln).astype(np.uint64)
+    vals = (cd << shift).astype(">u8")
+    view = vals.view(np.uint8).reshape(-1, 8)
+    for b in range(8):
+        np.add.at(buf, byte_off + b, view[:, b])
+    return lengths, buf[:nbytes].tobytes(), len(sym)
+
+
+def huffman_stream_size_bits(sym):
+    freq = np.bincount(sym, minlength=256)
+    lengths = huffman_code_lengths(freq)
+    return int((lengths[sym]).sum())
+
 
 def canonical_codes(lengths):
     """(codes uint32, lengths) canonical assignment."""
@@ -620,10 +698,15 @@ def tiled_footer_ranged(read, size: int):
     return header, raw
 
 
+def tiled_header_ranged(read, size: int) -> dict:
+    """Directory footer through an (offset, length) range reader."""
+    return tiled_footer_ranged(read, size)[0]
+
+
 def tiled_header(blob: bytes) -> dict:
     """Directory footer of a tiled container (header dict with units)."""
-    return tiled_footer_ranged(lambda off, ln: blob[off: off + ln],
-                               len(blob))[0]
+    return tiled_header_ranged(lambda off, ln: blob[off: off + ln],
+                               len(blob))
 
 
 def check_unit_frame(frame: bytes, entry: dict) -> None:

@@ -1,10 +1,10 @@
-"""Evaluation metrics (paper Sec. VII-C): ratio, PSNR, max error and the
-trajectory false cases."""
+"""Evaluation metrics (paper Sec. VII-C): ratio, PSNR, max error, the
+trajectory false cases and the track counts."""
 from __future__ import annotations
 
 import numpy as np
 
-from . import trajectory
+from . import compressor, fixedpoint, trajectory
 
 
 def compression_ratio(orig_bytes: int, comp_bytes: int) -> float:
@@ -33,13 +33,26 @@ def max_abs_error(u, v, u_rec, v_rec) -> float:
 
 
 def evaluate(u, v, u_rec, v_rec, scale, orig_bytes, comp_bytes,
-             device="cpu") -> dict:
-    """CR, PSNR, max error, FC_t, FC_s (trajectory counts are not ported:
-    ROADMAP Queue 1 item 9)."""
+             with_tracks: bool = True, device=None) -> dict:
+    """CR, PSNR, max error, FC_t, FC_s and, with ``with_tracks``, the
+    track counts of both fields (#Traj, ``n_traj_orig`` / ``n_traj_rec``).
+    The predicate tables of each field are built once, on ``device`` (the
+    CUDA device unless ``device="cpu"``), and serve both the false cases
+    and the track counts."""
+    dev = compressor.resolve_device(device)
     out = {
         "CR": compression_ratio(orig_bytes, comp_bytes),
         "PSNR": psnr(u, v, u_rec, v_rec),
         "max_err": max_abs_error(u, v, u_rec, v_rec),
     }
-    out.update(trajectory.false_cases(u, v, u_rec, v_rec, scale, device))
+    uo, vo = fixedpoint.refix(u, v, scale)
+    ur, vr = fixedpoint.refix(u_rec, v_rec, scale)
+    p0 = trajectory.face_predicate_tables(uo, vo, dev)
+    p1 = trajectory.face_predicate_tables(ur, vr, dev)
+    out.update(trajectory.false_cases_from_tables(p0, p1))
+    if with_tracks:
+        out["n_traj_orig"] = trajectory.extract_tracks(
+            uo, vo, tables=p0, device=dev)["n_tracks"]
+        out["n_traj_rec"] = trajectory.extract_tracks(
+            ur, vr, tables=p1, device=dev)["n_tracks"]
     return out

@@ -363,6 +363,20 @@ def _check_pt_core(xu_d, xv_d, lossless, lossless_extra, u_raw, v_raw,
     return lossless_extra | bad_pt, bad_pt.sum(), ur_fp, vr_fp
 
 
+def _faces_to_vertex_mask(bad_slice, bad_slab, T, H, W):
+    """(T, H, W) host bool mask of every vertex of the violated faces
+    (bad_slice (T, Fs), bad_slab (T-1, Fb) host bools)."""
+    HW = H * W
+    mask = np.zeros(T * HW, dtype=bool)
+    for bad, tab in ((bad_slice, grid.slab_faces(H, W)["slice0"]),
+                     (bad_slab, grid.slab_face_table(H, W))):
+        t_ids, f_ids = np.nonzero(np.asarray(bad))
+        if len(t_ids):
+            ids = tab[f_ids].astype(np.int64) + t_ids[:, None] * HW
+            mask[ids.reshape(-1)] = True
+    return mask.reshape(T, H, W)
+
+
 # ----------------------------------------------------------------------
 # decode (backend.sl_decode, shared with the verify simulation)
 # ----------------------------------------------------------------------

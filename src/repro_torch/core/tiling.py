@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import time
 from typing import Optional
 
@@ -925,7 +926,8 @@ def compress_tiled(u, v, cfg=None, grid: Optional[TileGrid] = None,
 def compress_stream(pairs, cfg=None, grid: Optional[TileGrid] = None,
                     value_range=None, sink=None, async_engine=False,
                     resume=False, faults=None, stage_timeout=None,
-                    autotune=False, *, device=None):
+                    autotune=False, n_frames_hint: Optional[int] = None, *,
+                    device=None):
     """Streaming tiled compression of an iterable of (u_t, v_t) frames;
     the bytes equal ``compress_tiled``'s for the same field.
 
@@ -946,10 +948,40 @@ def compress_stream(pairs, cfg=None, grid: Optional[TileGrid] = None,
     ``pairs(t_start) -> iterable``; an iterable is skipped forward).
     ``faults`` (core/faults.py FaultPlan) and ``stage_timeout`` (seconds,
     or REPRO_STAGE_TIMEOUT) are the engine's fault-injection and
-    watchdog hooks.  ``autotune`` is not ported (ROADMAP Queue 1 item
-    11)."""
+    watchdog hooks.
+
+    ``autotune=True`` picks the grid, codec and scheduling with the cost
+    model before any frame is compressed (repro_torch.autotune,
+    model-only: a stream cannot be rerun per candidate);
+    ``n_frames_hint`` stands in for the stream's length when ``pairs``
+    has no ``len``.  It is refused with ``resume``: a resumed run must
+    replay the journaled plan, not search for a new one."""
     cfg = cfg or compressor.CompressionConfig()
-    compressor.refuse_unported(cfg, autotune)
+    compressor.refuse_unported(cfg)
+    if autotune:
+        if resume:
+            raise ValueError(
+                "autotune=True cannot be combined with resume=True: a "
+                "resumed run must replay the journaled plan exactly; "
+                "rerun with the original grid/config")
+        from .. import autotune as autotune_mod
+
+        src = pairs(0) if callable(pairs) else pairs
+        try:
+            n_frames = len(src)
+        except TypeError:
+            n_frames = None
+        it = iter(src)
+        try:
+            first = next(it)
+        except StopIteration:
+            raise ValueError("autotune=True needs at least one frame")
+        H, W = np.asarray(first[0]).shape
+        cfg, cand = autotune_mod.tune_stream(
+            (n_frames or n_frames_hint or 64, H, W), cfg, device=device)
+        grid = cfg.tiling
+        async_engine = cand.async_engine
+        pairs = itertools.chain([first], it)
     grid = grid or cfg.tiling or TileGrid()
     if not isinstance(grid, TileGrid):
         raise TypeError(f"tiling must be a TileGrid, got {grid!r}")

@@ -4,16 +4,18 @@ A face of the space-time mesh is crossed by the zero set iff its SoS
 predicate holds (sos.py).  FC_t counts time-slice faces whose predicate
 differs between the original and the reconstruction, FC_s the slab
 faces; both are 0 when every trajectory is preserved.  The predicates
-run as int64 torch on ``device``, independent of the kernels.
-``tet_crossings`` / ``segment_edges`` turn the predicate tables into
-the zero set's segments (analysis/extraction.py).
+run as int64 torch on ``device`` (the CUDA device unless
+``device="cpu"``), independent of the kernels.  ``tet_crossings`` /
+``segment_edges`` turn the predicate tables into the zero set's
+segments (analysis/extraction.py), and ``extract_tracks`` counts the
+tracks they stitch into.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import fixedpoint, grid, sos
+from . import backend, compressor, fixedpoint, grid, sos
 
 _FACE_BUDGET = 1 << 22
 
@@ -77,12 +79,12 @@ def segment_edges(crossed, t_lo, shape):
         (t_lo + ci)[:, None], H, W)
 
 
-def face_predicate_tables(ufp, vfp, device="cpu") -> dict:
+def face_predicate_tables(ufp, vfp, device=None) -> dict:
     """All face predicates: {'slice': (T, Fs) bool, 'slab': (T-1, Fb)
     bool} host numpy arrays, from int64 (T, H, W) fixed-point fields."""
     T, H, W = ufp.shape
     HW = H * W
-    dev = torch.device(device)
+    dev = compressor.resolve_device(device)
     tabs = grid.device_tables(H, W, str(dev))
     u2 = torch.as_tensor(np.asarray(ufp, np.int64), device=dev).reshape(T, HW)
     v2 = torch.as_tensor(np.asarray(vfp, np.int64), device=dev).reshape(T, HW)
@@ -119,9 +121,46 @@ def false_cases_from_tables(p0, p1) -> dict:
     }
 
 
-def false_cases(u_orig, v_orig, u_rec, v_rec, scale, device="cpu") -> dict:
+def false_cases(u_orig, v_orig, u_rec, v_rec, scale, device=None) -> dict:
     """FC_t / FC_s / per-time CP counts, per the paper's metrics."""
+    dev = compressor.resolve_device(device)
     uo, vo = fixedpoint.refix(u_orig, v_orig, scale)
     ur, vr = fixedpoint.refix(u_rec, v_rec, scale)
-    return false_cases_from_tables(face_predicate_tables(uo, vo, device),
-                                   face_predicate_tables(ur, vr, device))
+    return false_cases_from_tables(face_predicate_tables(uo, vo, dev),
+                                   face_predicate_tables(ur, vr, dev))
+
+
+def extract_tracks(ufp, vfp, tables=None, device=None) -> dict:
+    """Track statistics of the zero set: ``n_tracks``,
+    ``n_crossing_nodes``, ``n_crossed_incidences`` (the JAX package's
+    counts).  ``tables`` reuses precomputed ``face_predicate_tables``.
+    The segments join crossed faces as in ``tet_crossings`` /
+    ``segment_edges``; ``backend.connected_labels`` stitches them on
+    ``device`` in place of a host union-find (the components, and so
+    the counts, are the same)."""
+    dev = compressor.resolve_device(device)
+    T, H, W = ufp.shape
+    shape = (T, H, W)
+    if tables is None:
+        tables = face_predicate_tables(ufp, vfp, dev)
+    family, _ = grid.tet_face_map(H, W)
+    step = _frame_chunk(4 * family.shape[0])
+    crossed_total = 0
+    parts = []
+    for lo in range(0, T - 1, step):
+        hi = min(lo + step, T - 1)
+        crossed = tet_crossings(tables, shape, lo, hi)
+        crossed_total += int(crossed.sum())
+        parts.append(segment_edges(crossed, lo, shape))
+    edges_fid = np.concatenate(parts) if parts else \
+        np.empty((0, 2), dtype=np.int64)
+    # the crossing nodes are the distinct face ids of the segments
+    face_ids, edges = np.unique(edges_fid, return_inverse=True)
+    labels = backend.connected_labels(
+        len(face_ids), torch.as_tensor(edges.reshape(-1, 2).astype(np.int64),
+                                       device=dev))
+    return {
+        "n_tracks": int(torch.unique(labels).numel()),
+        "n_crossing_nodes": int(len(face_ids)),
+        "n_crossed_incidences": crossed_total,
+    }

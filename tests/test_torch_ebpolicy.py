@@ -117,7 +117,7 @@ def test_adaptive_cross_decode_and_guarantees(runs, name):
     for a, b in zip(ref_of_port, port_of_ref):
         assert a.dtype == np.float32 and np.array_equal(a, b)
     ur, vr = port_of_ref
-    fc = trajectory.false_cases(u, v, ur, vr, ps["scale"])
+    fc = trajectory.false_cases(u, v, ur, vr, ps["scale"], device="cpu")
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0
     pol, kw = CASES[name]
     factor = compressor._eb_factor(

@@ -114,26 +114,15 @@ def test_unported_config_refused(field, kw, exc, match):
 
 def test_streaming_and_degraded_reads_refused(field):
     """Streaming and degraded reads run (ROADMAP item 8); what stays
-    refused: a stream with autotune (item 11), and resume without a
-    path sink (the journal lives next to the container)."""
+    refused: resume without a path sink (the journal lives next to the
+    container)."""
     u, v = field
     vr = (float(min(u.min(), v.min())), float(max(u.max(), v.max())))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        repro_torch.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
-                                    repro_torch.TileGrid(4, 4, 2),
-                                    autotune=True, device="cpu")
     with pytest.raises(ValueError, match="path"):
         repro_torch.compress_stream(zip(u, v), repro_torch.CompressionConfig(),
                                     repro_torch.TileGrid(4, 4, 2),
                                     value_range=vr, sink=io.BytesIO(),
                                     resume=True, device="cpu")
-
-
-@pytest.mark.parametrize("kw", [dict(autotune=True), dict(target_ratio=8.0)])
-def test_autotune_and_rate_refused(field, kw):
-    u, v = field
-    with pytest.raises(NotImplementedError, match="item 11"):
-        repro_torch.compress(u, v, device="cpu", **kw)
 
 
 def test_uniform_policy_spellings_accepted(field):

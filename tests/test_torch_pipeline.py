@@ -105,7 +105,7 @@ def test_cross_decode_bitwise(runs, name):
         assert np.array_equal(a, c)
     ur, vr = port_of_port
     assert metrics.max_abs_error(u, v, ur, vr) <= ps["eb_abs"]
-    fc = trajectory.false_cases(u, v, ur, vr, ps["scale"])
+    fc = trajectory.false_cases(u, v, ur, vr, ps["scale"], device="cpu")
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0
 
 
@@ -146,7 +146,7 @@ def test_golden_v2_decodes_bitwise():
     ur, vr = repro_torch.decompress(blob, device="cpu")
     assert np.array_equal(ur, exp["ur"]) and np.array_equal(vr, exp["vr"])
     fc = trajectory.false_cases(exp["u"], exp["v"], ur, vr,
-                                float(exp["scale"]))
+                                float(exp["scale"]), device="cpu")
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0
 
 
@@ -160,7 +160,7 @@ def test_metrics_match_reference():
     want = r_metrics.evaluate(u, v, ur, vr, ps["scale"], ps["orig_bytes"],
                               ps["comp_bytes"], with_tracks=False)
     got = metrics.evaluate(u, v, ur, vr, ps["scale"], ps["orig_bytes"],
-                           ps["comp_bytes"])
+                           ps["comp_bytes"], with_tracks=False, device="cpu")
     assert got == want
 
 

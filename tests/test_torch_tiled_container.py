@@ -71,7 +71,8 @@ def test_rounds_fire_decode_equals_monolithic(big):
     assert np.array_equal(tu, mu) and np.array_equal(tv, mv)
     assert np.array_equal(tu, ru) and np.array_equal(tv, rv)
     assert np.abs(tu.astype(np.float64) - u).max() <= ref_st["eb_abs"]
-    fc = trajectory.false_cases(u, v, tu, tv, ref_st["scale"])
+    fc = trajectory.false_cases(u, v, tu, tv, ref_st["scale"],
+                                device="cpu")
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0
 
 

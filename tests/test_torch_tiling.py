@@ -122,7 +122,7 @@ def test_tiled_decode_equals_monolithic_decode(field, ref_blobs, name):
     mu, mv = repro_torch.decompress(mono, device="cpu")
     tu, tv = repro_torch.decompress(ref_blobs[name], device="cpu")
     assert np.array_equal(tu, mu) and np.array_equal(tv, mv)
-    fc = trajectory.false_cases(u, v, tu, tv, st["scale"])
+    fc = trajectory.false_cases(u, v, tu, tv, st["scale"], device="cpu")
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0
 
 
@@ -226,16 +226,19 @@ def test_msgpack_writer_equals_msgpack_python_on_footer_types():
 def test_not_ported_options_name_item_8(field, ref_blobs, tmp_path):
     """Item 8 (streaming, salvage) is ported: salvage of a whole
     container keeps every unit, and what a stream still refuses is
-    autotune (item 11) and resume without a path sink or a value
-    range."""
+    autotune on an empty stream or with resume (item 11 is ported), and
+    resume without a path sink or a value range."""
     u, v = field
     blob, rep = encode.salvage_container(ref_blobs["host"])
     assert rep["units_recovered"] == 32 and rep["units_dropped"] == 0
     assert np.array_equal(repro_torch.decompress(blob, device="cpu")[0],
                           repro_torch.decompress(ref_blobs["host"],
                                                  device="cpu")[0])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="at least one frame"):
         tiling.compress_stream(iter([]), autotune=True, device="cpu")
+    with pytest.raises(ValueError, match="resume"):
+        tiling.compress_stream(zip(u, v), autotune=True, resume=True,
+                               value_range=(-1.0, 1.0), device="cpu")
     with pytest.raises(ValueError, match="path"):
         tiling.compress_stream(zip(u, v), value_range=(-1.0, 1.0),
                                resume=True, device="cpu")
@@ -287,7 +290,7 @@ def _verify_inputs(B, shape, seed, delta):
     vfp = torch.as_tensor(rng.integers(-3, 4, (B,) + shape))
     ur = ufp + torch.as_tensor(rng.integers(-1, 2, (B,) + shape))
     vr = vfp + torch.as_tensor(rng.integers(-1, 2, (B,) + shape))
-    preds = [trajectory.face_predicate_tables(ufp[b], vfp[b])
+    preds = [trajectory.face_predicate_tables(ufp[b], vfp[b], device="cpu")
              for b in range(B)]
     slice0 = torch.as_tensor(np.stack([p["slice"] for p in preds]))
     slab0 = torch.as_tensor(np.stack([p["slab"] for p in preds]))
