@@ -112,6 +112,24 @@ Phases (any failure exits non-zero; nothing is caught):
               rungs, the ratio reached); each baseline of
               repro_torch.baselines at the SCF analogue: ratio,
               seconds, FC_t / FC_s and launches
+4i. serve -- the LM scaffold's serving path (repro_torch.launch.serve;
+              no kernel of this package lies on it): for each of the ten
+              registered architectures at SMOKE size, f32 and bf16
+              activations, plus qwen1.5-32b's SMOKE with an int8 cache
+              padded to 8 KV heads, the same parameters (seeded generator
+              on the CPU, copied to the card) give prefill logits, four
+              decode steps on a padded cache and the final cache on the
+              card equal to the CPU's (f32: rtol = atol = 2e-4; bf16:
+              max error <= 0.05 * max(1, max |CPU|); int8 entries within
+              one step), with TF32 matmuls off; then yi-6b at full
+              published width (random init on the card, 32 layers,
+              d = 4096, 6.06 B parameters) served with the launcher's
+              defaults: prefills, tokens, seconds, prefill seconds,
+              decode tokens/s beside the weight-read bound, peak device
+              memory, the device's busy share over one decode step, no
+              compression kernel launched, and the last decode step's
+              logits of one request against one prefill over its whole
+              token sequence (bf16 bound as above)
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -187,7 +205,16 @@ SIZES = {
     "parity_autotune": (6, 32, 32),
     # the rate search's target at full width, in units of the uniform ratio
     "rate_factor": 1.5,
+    # LM serving: card == CPU at SMOKE (batch, prompt length, decode
+    # steps), and the architecture served at full published width
+    "serve_parity": (2, 32, 4),
+    "serve_arch": "yi_6b",
 }
+
+# card vs CPU (and decode vs prefill) bounds of the LM phase: the tests'
+# f32 bound and bf16 bound (tests/test_torch_lm_models*.py)
+LM_F32_TOL = 2e-4
+LM_BF16_REL = 0.05
 
 # the host codec's container bytes at the main sizes with zlib (the card's
 # machine has no zstandard), as the port wrote them from the start
@@ -2267,6 +2294,198 @@ def phase_autotune(dev, main):
 # phase 5: the kernel table at the main path's shapes
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# phase 4i: LM serving
+# ----------------------------------------------------------------------
+
+def lm_inputs(cfg, rng, B, S, n):
+    """A numpy prefill batch and ``n`` decode-step batches for ``cfg``."""
+    if cfg.is_encoder_decoder:
+        batch = {"frames": rng.normal(0, 1, (B, S, cfg.d_model))
+                 .astype(np.float32),
+                 "tokens": rng.integers(0, cfg.vocab, (B, 8))
+                 .astype(np.int32)}
+    elif cfg.embedding_inputs:
+        batch = {"embeds": rng.normal(0, 1, (B, S, cfg.d_model))
+                 .astype(np.float32),
+                 "position_ids": np.broadcast_to(
+                     np.arange(S, dtype=np.int32)[None, None],
+                     (3, B, S)).copy()}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab, (B, S))
+                 .astype(np.int32)}
+    if cfg.embedding_inputs:
+        steps = [{"embeds": rng.normal(0, 1, (B, 1, cfg.d_model))
+                  .astype(np.float32)} for _ in range(n)]
+    else:
+        steps = [{"tokens": rng.integers(0, cfg.vocab, (B, 1))
+                  .astype(np.int32)} for _ in range(n)]
+    return batch, steps
+
+
+def lm_drive(model, batch, steps, max_len, cache_dtype):
+    """Prefill, pad the cache, decode ``steps``: every logits tensor and
+    the final cache, as f64 numpy (int8 caches stay integral)."""
+    from repro_torch.launch import serve
+
+    dev = model.device
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    logits, cache = model.prefill(tb)
+    out = {"prefill": logits}
+    kw = {"enc_len": batch["frames"].shape[1]} if "frames" in batch else {}
+    if cache_dtype is not None:
+        kw["dtype"] = cache_dtype
+    n = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
+    cache = serve.pad_cache(model, cache, n, max_len, **kw)
+    for i, st in enumerate(steps):
+        logits, cache = model.decode_step(
+            {k: torch.from_numpy(v).to(dev) for k, v in st.items()}, cache)
+        out[f"decode{i}"] = logits
+    out.update({f"cache_{k}": v for k, v in cache.items()})
+    return {k: v.detach().cpu().to(torch.float64).numpy()
+            for k, v in out.items()}
+
+
+def lm_err(ref, got, rel):
+    """Max abs error of ``got`` and its bound: ``LM_F32_TOL`` + the f32
+    relative part, or ``rel`` * max(1, max |ref|)."""
+    err = float(np.abs(ref - got).max()) if ref.size else 0.0
+    if rel is None:
+        bound = float((LM_F32_TOL + LM_F32_TOL * np.abs(ref)).max()) \
+            if ref.size else 0.0
+        ok = ref.size == 0 or bool(np.all(np.abs(ref - got) <= LM_F32_TOL
+                                          + LM_F32_TOL * np.abs(ref)))
+    else:
+        bound = rel * max(1.0, float(np.abs(ref).max()) if ref.size else 1.0)
+        ok = err <= bound
+    return err, bound, ok
+
+
+def serve_parity(dev):
+    """Card == CPU for every SMOKE architecture, f32 and bf16, and the
+    int8 / head-padded cache of qwen1.5-32b."""
+    import repro_torch.configs as C
+    from repro_torch.models.transformer import build_model
+
+    B, S, n = SIZES["serve_parity"]
+    cases = [(a, d, None, {}) for d in ("float32", "bfloat16")
+             for a in C.ARCHS]
+    cases += [("qwen1_5_32b", d, "int8", {"decode_head_pad": 8})
+              for d in ("float32", "bfloat16")]
+    t0 = time.perf_counter()
+    for arch, dtype, cache_dtype, override in cases:
+        cfg = dataclasses.replace(C.get(arch).SMOKE, dtype=dtype, **override)
+        cpu = build_model(cfg, device="cpu", seed=0)
+        card = build_model(cfg, device="cpu", seed=0).to(dev)
+        batch, steps = lm_inputs(cfg, np.random.default_rng(1), B, S, n)
+        max_len = (8 if cfg.is_encoder_decoder else S) + n
+        ref = lm_drive(cpu, batch, steps, max_len, cache_dtype)
+        got = lm_drive(card, batch, steps, max_len, cache_dtype)
+        rel = None if dtype == "float32" else LM_BF16_REL
+        worst = {"logits": 0.0, "cache": 0.0}
+        for key, r in ref.items():
+            if key.startswith("cache_") and cache_dtype == "int8" \
+                    and key in ("cache_k", "cache_v"):
+                err = float(np.abs(r - got[key]).max())
+                assert err <= 1, (arch, dtype, key, err)
+                assert not got[key][:, :, :, cfg.n_kv_heads:].any()
+            else:
+                err, bound, ok = lm_err(r, got[key], rel)
+                assert ok, (arch, dtype, key, err, bound)
+            part = "cache" if key.startswith("cache_") else "logits"
+            worst[part] = max(worst[part], err)
+        tag = arch + (f" int8 pad {cfg.decode_head_pad}" if cache_dtype
+                      else "")
+        say(f"serve parity {tag} {dtype}: card == CPU, max |err| logits "
+            f"{worst['logits']:.3e}, cache {worst['cache']:.3e} "
+            f"({'rtol=atol=2e-4' if rel is None else f'<= {rel} x max'})")
+    say(f"serve parity: {len(cases)} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_serve(dev):
+    """The LM scaffold's serving path: card == CPU at SMOKE, then yi-6b at
+    full published width through the launcher."""
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    t_phase = time.perf_counter()
+    serve_parity(dev)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+    arch = SIZES["serve_arch"]
+    cfg = C.get(arch).CONFIG
+    args = serve.parse_args(["--arch", arch, "--device", str(dev)])
+    fns = wrappers()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    reset_counts(fns)
+    out = serve.run(args, model=model)
+    counts = read_counts(fns)
+    assert not any(counts.values()), counts   # no kernel on this path
+    peak = torch.cuda.max_memory_allocated() - held
+    assert out["prefills"] == args.requests
+    assert out["decoded_tokens"] == args.requests * args.gen_len
+    toks = np.stack([out["tokens"][r] for r in range(args.requests)])
+    assert toks.shape == (args.requests, args.gen_len)
+    assert ((toks >= 0) & (toks < cfg.vocab)).all()
+    tok_s = out["decoded_tokens"] / out["decode_seconds"]
+    # least time of a batch-1 decode step: read every bf16 weight once
+    # (the embedding table only by its one gathered row)
+    read = 2 * (n_params - cfg.vocab * cfg.d_model)
+    bound_s = read / HBM_BYTES_PER_S
+    say(f"serve {arch} full width ({n_params / 1e9:.3f} B params, "
+        f"{cfg.dtype} activations, {cfg.param_dtype} weights + held "
+        f"{cfg.dtype} copies): init {init_s:.2f} s; {out['requests']} "
+        f"requests, batch {args.batch}, prompt {args.prompt_len}, gen "
+        f"{args.gen_len}: {out['prefills']} prefills, "
+        f"{out['decoded_tokens']} tokens in {out['seconds']:.3f} s, prefill "
+        f"{out['prefill_seconds']:.3f} s, decode {tok_s:.1f} tokens/s "
+        f"(bound {1.0 / bound_s:.1f}: {read / 1e9:.2f} GB of bf16 weights "
+        f"a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{bound_s * 1e3:.3f} ms), peak {peak / 2**20:.1f} MiB above the "
+        f"held, compression kernels launched: 0")
+
+    # one decode step under the profiler (a fresh request, warmed up)
+    dev_t = model.device
+    prompt = out["prompts"][0]["tokens"].to(dev_t)
+    _, cache = model.prefill({"tokens": prompt})
+    cache = serve.pad_cache(model, cache, 1, args.max_len)
+    nxt = torch.zeros((1, 1), dtype=torch.int32, device=dev_t)
+    model.decode_step({"tokens": nxt}, cache)
+    wall, busy, rows = device_profile(
+        lambda: model.decode_step({"tokens": nxt}, cache))
+    say(f"serve {arch} one decode step profiled: wall {wall * 1e3:.3f} ms, "
+        f"device {busy * 1e3:.3f} ms, busy {100 * busy / wall:.1f} %, "
+        f"{sum(r[2] for r in rows)} device ops; top "
+        + ", ".join(f"{n[:40]} {ms:.3f} ms x{c}" for n, ms, c in rows[:4]))
+
+    # the last decode step's logits == one prefill over the whole sequence
+    seq = torch.cat([out["prompts"][0]["tokens"],
+                     torch.from_numpy(out["tokens"][0])[None]], dim=1)
+    full, _ = model.prefill({"tokens": seq.to(dev_t)})
+    ref = full.double().cpu().numpy()
+    got = out["last_logits"][0].double().cpu().numpy()
+    err, bound, ok = lm_err(ref, got, LM_BF16_REL)
+    same_top = int(ref.argmax()) == int(got.argmax())
+    say(f"serve {arch} decode vs prefill over {seq.shape[1]} tokens: max "
+        f"|err| {err:.3e} (bound {bound:.4f}, max |logit| "
+        f"{float(np.abs(ref).max()):.3f}), {int((ref != got).sum())} of "
+        f"{ref.size} logits differ, same argmax {same_top}")
+    assert ok, (err, bound)
+    del model, cache, full
+    torch.cuda.empty_cache()
+    say(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def sl_ops_count(xu, xv, g2f, cx, cy, d_max, n_max):
     """f64 operations of the SL stepper on these inputs (any stack)."""
     u = xu.to(torch.float64) * g2f
@@ -2522,6 +2741,7 @@ def main() -> int:
     phase_recovery(dev, stream_blob, tiled_runs)
     phase_query(dev, tiled_runs)
     phase_autotune(dev, main_runs)
+    phase_serve(dev)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..core import backend as backend_mod
-from ..core import encode
+from ..core import compressor, encode
 from . import classify as classify_mod
 from .extraction import dense_track_ids
 from .model import CP_TYPES
@@ -57,12 +57,13 @@ def _cover_points(cells, shape):
 class TrackIndexBuilder:
     """Accumulates per-unit segment records (``add_unit``, once per
     emitted unit, in emission order) and builds the footer section
-    (``finalize``).  The component labeling runs on ``device``."""
+    (``finalize``).  The component labeling runs on ``device`` (None:
+    the CUDA device; RuntimeError without one)."""
 
-    def __init__(self, tgrid, device="cpu",
+    def __init__(self, tgrid, device=None,
                  spiral_tol: float = classify_mod.DEFAULT_SPIRAL_TOL):
         self.tgrid = tgrid
-        self.device = torch.device(device)
+        self.device = compressor.resolve_device(device)
         self.spiral_tol = float(spiral_tol)
         self._keys = []
         self._seg_fid = []

@@ -1,0 +1,1 @@
+"""Launchers of the LM scaffold (the port of ``repro.launch``): serving."""

@@ -31,8 +31,8 @@ def test_port_file_imports_no_jax_nor_reference(path):
 
 
 def test_port_runs_without_jax():
-    """With ``jax`` unimportable the port still imports and round-trips
-    a field on the CPU."""
+    """With ``jax`` unimportable the port still imports, round-trips a
+    field and serves a SMOKE model on the CPU."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, repro_torch\n"
@@ -41,6 +41,14 @@ def test_port_runs_without_jax():
         "blob, st = repro_torch.compress(u, v, device='cpu')\n"
         "ur, vr = repro_torch.decompress(blob, device='cpu')\n"
         "assert np.abs(ur.astype(np.float64) - u).max() <= st['eb_abs']\n"
+        "import repro_torch.configs as C\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models import convert, transformer\n"
+        "assert len(C.all_archs()) == 10\n"
+        "out = serve.run(serve.parse_args(['--arch', 'yi_6b', '--smoke',\n"
+        "    '--requests', '1', '--batch', '1', '--gen-len', '2',\n"
+        "    '--device', 'cpu']))\n"
+        "assert out['tokens'][0].shape == (2,)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               or m == 'repro' for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
@@ -94,6 +102,9 @@ def test_stream_and_read_entry_points_need_cuda(no_cuda, field):
     _, ufp, vfp = fixedpoint.to_fixed(u, v)
     with pytest.raises(RuntimeError, match="CUDA"):
         analysis.extract(ufp, vfp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis.TrackIndexBuilder(grid)
+    assert analysis.TrackIndexBuilder(grid, "cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("kw,exc,match", [

@@ -434,6 +434,8 @@ def test_degraded_region_decode(reference):
 
 
 def test_degraded_track_decode_drops_only_affected(reference):
+    from repro.analysis import query as r_query
+
     query.configure_unit_cache(0)
     try:
         s = max(query.track_summaries(reference), key=lambda s: s["n_nodes"])
@@ -457,8 +459,6 @@ def test_degraded_track_decode_drops_only_affected(reference):
                 assert tuple(n) == ref[int(f)]
                 n_nodes += 1
         assert 0 < n_nodes < len(full.track.face_ids)
-        from repro.analysis import query as r_query
-
         r_query.configure_unit_cache(0)
         rd = r_query.decode_for_track(bad, tid, backend="numpy",
                                       degraded=True)
@@ -470,6 +470,7 @@ def test_degraded_track_decode_drops_only_affected(reference):
             assert np.array_equal(a.types, b.types)
     finally:
         query.configure_unit_cache(256)
+        r_query.configure_unit_cache(256)
 
 
 def test_degraded_decode_of_salvaged_truncation(reference):
