@@ -130,6 +130,27 @@ Phases (any failure exits non-zero; nothing is caught):
               compression kernel launched, and the last decode step's
               logits of one request against one prefill over its whole
               token sequence (bf16 bound as above)
+4j. train -- the LM scaffold's training path (repro_torch.launch.train;
+              no kernel of this package lies on it): for each of the ten
+              architectures at SMOKE size with f32 activations, and one
+              bf16 run a family, the same seeded parameters on the card
+              and the CPU take two make_train_step steps on the token
+              pipeline's batches: losses, every gradient leaf of the
+              first step, parameters, m and v after the second, card ==
+              CPU (f32: 2e-4 + 2e-4 |x|, parameters + 2 x the summed lr;
+              bf16: 0.05 * max(1, max |CPU|)), TF32 off; microbatches=2
+              against 1 on the card; compress_grads card == CPU bitwise
+              over three rounds of error feedback; a checkpoint saved
+              from the card restored on the CPU bitwise; then
+              stablelm-1.6b at full published width (24 layers,
+              d = 2048, 1.64 B parameters, random init on the card)
+              trained through the launcher's defaults (batch 8 x seq
+              128, f32 parameters and moments, no checkpoint) for six
+              steps: losses (the first near ln V), step seconds and
+              tokens/s beside the step's bound, peak device memory, one
+              step under torch.profiler (device ms, ops, busy share; then
+              its loss + backward and its AdamW apart, each beside its
+              half of the bound) and no compression kernel launched
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -156,10 +177,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f64 rate
-# outside the tensor cores (the stepper's scalar f64 cannot use them)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f64 rate
+# outside the tensor cores (the stepper's scalar f64 cannot use them) and
+# the dense bf16 tensor-core rate (the LM's matmuls)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOPS = 34e12
+BF16_FLOPS = 989e12
 
 SIZES = {
     "k1": (8, 256, 256),
@@ -209,6 +232,12 @@ SIZES = {
     # steps), and the architecture served at full published width
     "serve_parity": (2, 32, 4),
     "serve_arch": "yi_6b",
+    # LM training: card == CPU at SMOKE (batch, sequence, steps), and the
+    # architecture trained at full published width for this many steps
+    # (the launcher's batch 8 x seq 128)
+    "train_parity": (2, 32, 2),
+    "train_arch": "stablelm_1_6b",
+    "train_steps": 6,
 }
 
 # card vs CPU (and decode vs prefill) bounds of the LM phase: the tests'
@@ -2486,6 +2515,259 @@ def phase_serve(dev):
     say(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 4j: LM training
+# ----------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=20)   # launch/train.py's AdamW
+
+
+def train_drive(model, batches, microbatches=1):
+    """``len(batches)`` steps of ``make_train_step`` from ``model``'s
+    parameters: the losses, every gradient leaf of the first step (mb 1)
+    and the parameters, m and v after the last, as f64 numpy."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = model.cfg
+    ocfg = opt.AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype)
+    step = ts.make_train_step(model, ocfg, microbatches)
+    state = ts.init_train_state(model, ocfg)
+    named = dict(model.named_parameters())
+    out = {}
+    if microbatches == 1:
+        _, _, grads = ts.value_and_grad(model, named, batches[0])
+        out.update({f"grad {n}": g for n, g in grads.items()})
+    losses = []
+    for b in batches:
+        state, met = step(state, b)
+        losses.append(met["loss"])
+    out["loss"] = torch.stack(losses)
+    out.update({f"param {n}": p.detach() for n, p in named.items()})
+    for key in ("m", "v"):
+        out.update({f"{key} {n}": t for n, t in state["adam"][key].items()})
+    return {k: v.detach().cpu().to(torch.float64).numpy()
+            for k, v in out.items()}, state
+
+
+def train_batches(cfg, dev, B, S, n):
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.launch import train
+
+    tp = TokenPipelineConfig(vocab=cfg.vocab, batch=B, seq_len=S)
+    return [train.make_batch(cfg, tp, i, B, S, dev) for i in range(n)]
+
+
+def train_err(ref, got, key, rel, lr_sum):
+    """(max |err|, bound, ok) of one train_drive entry: f32 within
+    LM_F32_TOL + LM_F32_TOL |ref| (parameters: + 2 * the summed lr, an
+    Adam update of a near-zero gradient can go either way), bf16 within
+    ``rel`` * max(1, max |ref|)."""
+    if rel is not None:
+        return lm_err(ref, got, rel)
+    slack = 2 * lr_sum if key.startswith("param ") else 0.0
+    tol = LM_F32_TOL + slack + LM_F32_TOL * np.abs(ref)
+    err = float(np.abs(ref - got).max()) if ref.size else 0.0
+    return err, float(tol.max()) if ref.size else 0.0, \
+        bool(np.all(np.abs(ref - got) <= tol))
+
+
+def train_parity(dev):
+    """Card == CPU for two training steps of every SMOKE architecture (f32
+    activations, TF32 off) and one bf16 run a family; micro-batches 2
+    against 1 on the card; compress_grads on the card == on the CPU bit
+    for bit; a checkpoint saved from the card restores on the CPU bit
+    for bit."""
+    import tempfile
+
+    import repro_torch.configs as C
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train import train_step as ts
+
+    B, S, n = SIZES["train_parity"]
+    lr_sum = sum(TRAIN_OPT["lr"] * min((i + 1) / TRAIN_OPT["warmup_steps"],
+                                       1.0) for i in range(n))
+    families = {}
+    for a in C.ARCHS:
+        families.setdefault(C.get(a).SMOKE.family, a)
+    cases = [(a, "float32") for a in C.ARCHS] \
+        + [(a, "bfloat16") for a in families.values()]
+    t0 = time.perf_counter()
+    for arch, dtype in cases:
+        cfg = dataclasses.replace(C.get(arch).SMOKE, dtype=dtype)
+        cpu = build_model(cfg, device="cpu", seed=0)
+        card = build_model(cfg, device="cpu", seed=0).to(dev)
+        ref, _ = train_drive(cpu, train_batches(cfg, "cpu", B, S, n))
+        got, _ = train_drive(card, train_batches(cfg, dev, B, S, n))
+        rel = None if dtype == "float32" else LM_BF16_REL
+        worst = {}
+        for key, r in ref.items():
+            err, bound, ok = train_err(r, got[key], key, rel, lr_sum)
+            assert ok, (arch, dtype, key, err, bound)
+            part = key.split(" ")[0]
+            worst[part] = max(worst.get(part, 0.0), err)
+        say(f"train parity {arch} {dtype}: card == CPU over {n} steps, max "
+            f"|err| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f" (losses {', '.join(f'{x:.5f}' for x in got['loss'])})")
+
+    # micro-batches 2 against 1, and compression and a checkpoint of the
+    # card's state
+    cfg = C.get("qwen2_vl_7b").SMOKE
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    batches = train_batches(cfg, dev, B, S, n)
+    one, _ = train_drive(build_model(cfg, device="cpu", seed=0).to(dev),
+                         batches)
+    model = build_model(cfg, device="cpu", seed=0).to(dev)
+    two, state = train_drive(model, batches, microbatches=2)
+    worst = 0.0
+    for key, r in two.items():
+        err, bound, ok = train_err(one[key], r, key, None, lr_sum)
+        assert ok, ("microbatches", key, err, bound)
+        worst = max(worst, err)
+    say(f"train parity {cfg.name} microbatches 2 vs 1 on the card "
+        f"((3, B, S) position_ids split on axis 1): max |err| {worst:.3e}")
+
+    named = dict(model.named_parameters())
+    _, _, grads = ts.value_and_grad(model, named, batches[0])
+    gcfg = gc.GradCompressConfig(enabled=True)
+    res_d, res_h = gc.init_residuals(grads), gc.init_residuals(
+        {k: g.cpu() for k, g in grads.items()})
+    for r in range(3):
+        g_d = {k: g * 10.0 ** (r - 1) for k, g in grads.items()}
+        out_d, res_d, _ = gc.compress_grads(g_d, res_d, gcfg)
+        out_h, res_h, _ = gc.compress_grads(
+            {k: g.cpu() for k, g in g_d.items()}, res_h, gcfg)
+        for k in out_h:
+            assert torch.equal(out_d[k].cpu(), out_h[k]), ("gc grad", r, k)
+            assert torch.equal(res_d[k].cpu(), res_h[k]), ("gc res", r, k)
+    say(f"train parity compress_grads: card == CPU bitwise over 3 rounds "
+        f"of error feedback ({len(grads)} leaves)")
+
+    trees = train.checkpoint_trees(cfg, model, state)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ckpt.save(tmp, 2, trees)
+        restored, _ = ckpt.restore(tmp, trees)
+    n_leaves = 0
+    for path, leaf in ckpt._leaves(trees):
+        node = restored
+        for p in path:
+            node = node[p]
+        want = leaf.numpy()
+        assert node.dtype == want.dtype and np.array_equal(node, want), path
+        n_leaves += 1
+    say(f"train parity checkpoint: saved from the card, restored on the "
+        f"CPU bitwise ({n_leaves} leaves)")
+    say(f"train parity: {len(cases)} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_train(dev):
+    """The LM scaffold's training path (repro_torch.launch.train; no
+    kernel of this package lies on it): card == CPU at SMOKE, then
+    stablelm-1.6b at full published width through the launcher."""
+    import statistics
+
+    import repro_torch.configs as C
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    t_phase = time.perf_counter()
+    train_parity(dev)
+
+    arch = SIZES["train_arch"]
+    cfg = C.get(arch).CONFIG
+    args = train.parse_args(["--arch", arch, "--steps",
+                             str(SIZES["train_steps"]), "--log-every", "1",
+                             "--device", str(dev)])
+    fns = wrappers()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    reset_counts(fns)
+    out = train.run(args, model=model)
+    counts = read_counts(fns)
+    assert not any(counts.values()), counts   # no kernel on this path
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = out["losses"]
+    assert len(losses) == args.steps and np.isfinite(losses).all(), losses
+    ln_v = float(np.log(cfg.vocab))
+    assert abs(losses[0] - ln_v) < 2.0, (losses[0], ln_v)
+    tokens = args.batch * args.seq
+    step_s = statistics.median(out["seconds"][1:])
+    # least time of a step: the matmuls of forward, recomputed forward and
+    # backward (8 flops a weight and token; the embedding table is only
+    # gathered) at the bf16 peak, then AdamW's read of p, g, m, v and
+    # write of p, m, v (28 B a parameter, f32) at the HBM rate
+    flops = 8.0 * (n_params - cfg.vocab * cfg.d_model) * tokens
+    opt_bytes = 28.0 * n_params
+    t_flops, t_bytes = flops / BF16_FLOPS, opt_bytes / HBM_BYTES_PER_S
+    bound_s = t_flops + t_bytes
+    say(f"train {arch} full width ({n_params / 1e9:.3f} B params, "
+        f"{cfg.dtype} activations, {cfg.param_dtype} parameters and "
+        f"moments): init {init_s:.2f} s; {args.steps} steps of batch "
+        f"{args.batch} x seq {args.seq} ({tokens} tokens): losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (ln V = {ln_v:.4f}); step seconds "
+        + ", ".join(f"{x:.4f}" for x in out["seconds"])
+        + f"; median of steps 2-{args.steps} {step_s:.4f} s = "
+        f"{tokens / step_s:.1f} tokens/s; bound {bound_s * 1e3:.3f} ms "
+        f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{t_flops * 1e3:.3f} ms + {opt_bytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes * 1e3:.3f} ms); peak "
+        f"{peak / 2**20:.1f} MiB above the held; {out['stragglers']} "
+        f"straggler events; compression kernels launched: 0")
+
+    # one more step under the profiler
+    batch = train.make_batch(cfg, out["tp_cfg"], args.steps, args.batch,
+                             args.seq, dev)
+    box = {"state": out["state"]}
+
+    def one_step():
+        box["state"], met = out["step_fn"](box["state"], batch)
+        box["loss"] = met["loss"]
+
+    wall, busy, rows = device_profile(one_step)
+    assert np.isfinite(float(box["loss"]))
+    say(f"train {arch} one step profiled: wall {wall * 1e3:.3f} ms, device "
+        f"{busy * 1e3:.3f} ms, busy {100 * busy / wall:.1f} %, "
+        f"{sum(r[2] for r in rows)} device ops; bound "
+        f"{bound_s * 1e3:.3f} ms; top "
+        + ", ".join(f"{n[:40]} {ms:.3f} ms x{c}" for n, ms, c in rows[:5]))
+
+    # the step's two halves apart: loss + backward, then AdamW alone
+    named = dict(model.named_parameters())
+    ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=20,
+                           state_dtype=cfg.opt_state_dtype)
+    box.update(grads=None)
+
+    def backward():
+        box["grads"] = ts.value_and_grad(model, named, batch)[2]
+
+    def adamw():
+        opt.apply_updates(named, box["grads"], box["state"]["adam"], ocfg)
+
+    for tag, fn, floor in (("loss + backward", backward, t_flops),
+                           ("AdamW", adamw, t_bytes)):
+        wall, busy, rows = device_profile(fn)
+        say(f"train {arch} {tag} profiled: wall {wall * 1e3:.3f} ms, device "
+            f"{busy * 1e3:.3f} ms, {sum(r[2] for r in rows)} device ops; "
+            f"its bound {floor * 1e3:.3f} ms")
+    del model, out, box, batch, named
+    torch.cuda.empty_cache()
+    say(f"train: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def sl_ops_count(xu, xv, g2f, cx, cy, d_max, n_max):
     """f64 operations of the SL stepper on these inputs (any stack)."""
     u = xu.to(torch.float64) * g2f
@@ -2742,6 +3024,7 @@ def main() -> int:
     phase_query(dev, tiled_runs)
     phase_autotune(dev, main_runs)
     phase_serve(dev)
+    phase_train(dev)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

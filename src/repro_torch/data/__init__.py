@@ -1,1 +1,2 @@
-"""Synthetic field generators (numpy; shared shapes with the JAX package)."""
+"""Synthetic field generators and the synthetic LM token pipeline (numpy;
+shared shapes and values with the JAX package)."""

@@ -1,1 +1,2 @@
-"""Launchers of the LM scaffold (the port of ``repro.launch``): serving."""
+"""Launchers of the LM scaffold (the port of ``repro.launch``): serving
+and single-device training."""

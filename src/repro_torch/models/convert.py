@@ -6,7 +6,10 @@ np.asarray, params)``), unstacks the leading layer axis of ``blocks``,
 ``enc_blocks`` and ``dec_blocks`` and the group axis of Jamba's
 ``superblocks`` (a list of sub-layer dicts), and returns the port's
 state dict.  Names and ``(d_in, d_out)`` layouts are the same in both
-packages, so nothing is transposed.
+packages, so nothing is transposed.  ``params_to_jax(cfg, state_dict)``
+is its inverse: it stacks those axes again into the reference's nested
+tree (torch leaves), the layout of the reference's optimizer states and
+checkpoints too.
 """
 from __future__ import annotations
 
@@ -74,3 +77,74 @@ def load_params(model, tree: dict):
     dev = model.device
     model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
     return model
+
+
+def _nest(flat: dict) -> dict:
+    out = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
+def _leaf_of(name: str):
+    """(the reference leaf a port parameter slices: (container, sub-layer
+    or None, path within it), its index on the stacked axis or None)."""
+    key, rest = name.split(".", 1)
+    if key in _STACKED:
+        i, leaf = rest.split(".", 1)
+        return (key, None, leaf), int(i)
+    if key == "superblocks":
+        g, i, leaf = rest.split(".", 2)
+        return (key, int(i), leaf), int(g)
+    return (key, None, rest), None
+
+
+def is_stacked(name: str) -> bool:
+    """Whether the port parameter ``name`` is one layer's (or one group's)
+    slice of a leaf that the reference stacks over its layers (groups)."""
+    return _leaf_of(name)[1] is not None
+
+
+def stacked_groups(names) -> list:
+    """The port parameter names grouped by the reference leaf they are
+    slices of, each group in stacked-axis order (an unstacked name is a
+    group of its own)."""
+    groups = {}
+    for name in names:
+        leaf, idx = _leaf_of(name)
+        groups.setdefault(leaf, []).append((-1 if idx is None else idx, name))
+    return [[n for _, n in sorted(g)] for g in groups.values()]
+
+
+def params_to_jax(cfg: ModelConfig, state_dict: dict) -> dict:
+    """The port's state dict (or any dict keyed by its parameter names,
+    e.g. Adam moments) -> the reference's nested tree, leaves stacked
+    over the layer axis of ``blocks`` / ``enc_blocks`` / ``dec_blocks``
+    and the group axis of ``superblocks`` (a list of sub-layer dicts).
+    Leaves stay torch tensors on their device."""
+    n_stacked = {"blocks": cfg.n_layers, "dec_blocks": cfg.n_layers,
+                 "enc_blocks": cfg.n_enc_layers,
+                 "superblocks": cfg.n_layers // max(cfg.attn_every, 1)}
+    flat = {}                      # (container, sub-layer) -> {path: leaf}
+    for group in stacked_groups(state_dict):
+        (key, sub, path), idx = _leaf_of(group[0])
+        if idx is None:
+            val = state_dict[group[0]]
+        else:
+            got = [_leaf_of(n)[1] for n in group]
+            if got != list(range(n_stacked[key])):
+                raise ValueError(f"{key}.{path}: layers {got}, expected "
+                                 f"0..{n_stacked[key] - 1}")
+            val = torch.stack([state_dict[n] for n in group])
+        flat.setdefault((key, sub), {})[path] = val
+    tree = {key: _nest(leaves) for (key, sub), leaves in flat.items()
+            if sub is None}
+    subs = {sub: _nest(leaves) for (key, sub), leaves in flat.items()
+            if sub is not None}
+    if subs:
+        tree["superblocks"] = [subs[i] for i in range(len(subs))]
+    return tree

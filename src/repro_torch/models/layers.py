@@ -10,7 +10,9 @@ Conventions
   and are used in the activation dtype (default bf16).  ``Params.cast``
   holds each cast copy, so a bf16 model with f32 weights keeps one bf16
   copy of every weight beside it (``w.to(bf16)`` is deterministic; a
-  cast per call would re-read the f32 weights on every step).
+  cast per call would re-read the f32 weights on every step).  A
+  parameter that requires grad is cast in the graph instead, while grad
+  is enabled (training), so its gradient reaches the f32 weight.
 * activations: (B, S, D).  Attention works on (B, S, Hkv, G, Dh) grouped
   heads so GQA never materializes repeated KV.
 * KV caches store un-repeated KV heads: (B, S, Hkv, Dh).
@@ -28,13 +30,15 @@ from .config import ModelConfig, dtype_of, pdtype_of, torch_dtype  # noqa: F401
 
 
 class Params(nn.Module):
-    """A nested dict of tensors as a module: tensors become frozen
-    parameters under their JAX names, dicts become sub-modules.
+    """A nested dict of tensors as a module: tensors become parameters
+    under their JAX names (frozen until training asks for their grads),
+    dicts become sub-modules.
 
     ``p["wq"]`` reads a parameter, ``"bq" in p`` tests for one and
-    ``p.cast("wq", dtype)`` gives it in ``dtype``, cast once and held
-    until the parameter changes (a load bumps its version; ``.to()``
-    clears the held copies)."""
+    ``p.cast("wq", dtype)`` gives it in ``dtype``: cast once and held
+    until the parameter changes (a load or an optimizer step bumps its
+    version; ``.to()`` clears the held copies), or, for a parameter that
+    requires grad while grad is enabled, cast in the graph."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -56,6 +60,8 @@ class Params(nn.Module):
         w = self._parameters[name]
         if w.dtype == dtype:
             return w
+        if w.requires_grad and torch.is_grad_enabled():
+            return w.to(dtype)
         held = self._casts.get((name, dtype))
         if held is None or held[0] != w._version:
             held = (w._version, w.detach().to(dtype))

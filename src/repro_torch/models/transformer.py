@@ -12,6 +12,7 @@ behind one API.
 
 API (the JAX package's, with the parameters held by the module):
   build_model(cfg, device=None, seed=0) -> model (random init)
+  model.train_loss(batch) -> (loss f32, metrics dict)
   model.init_cache(batch_size, max_len, ...) -> cache dict
   model.prefill(batch) -> (last-position logits (B, 1, V) f32, cache)
   model.decode_step(batch, cache) -> (logits (B, 1, V) f32, cache)
@@ -21,14 +22,19 @@ where the JAX package stacks them for ``lax.scan``; the caches keep its
 stacked layouts, e.g. (L, B, S, Hkv, Dh).  ``decode_step`` writes the new
 position into the cache's tensors in place and returns the same dict with
 ``length`` advanced; ``length`` stays a 0-d int32 tensor on the device,
-so a decode step never waits for the device.
+so a decode step never waits for the device.  A step past the cache's
+last slot writes that slot again (the JAX package's
+``dynamic_update_slice`` clamps the position the same way).
 
-Training (``train_loss``, ``chunked_ce_loss``) is not ported yet.
+``train_loss`` recomputes each block (and each cross-entropy chunk) in
+the backward pass, as the JAX package's ``jax.checkpoint`` bodies do, so
+the saved activations are one (B, S, D) input per block.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mamba as M
@@ -38,15 +44,34 @@ from .config import ModelConfig
 from .layers import Init, Params
 
 
-def _refuse_training():
-    raise NotImplementedError(
-        "training (train_loss, chunked_ce_loss) is not ported to "
-        "repro_torch yet (ROADMAP Queue 1 item 13b); the port serves only")
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _ce_sum(cfg: ModelConfig, embed_params, x, labels):
+    """Summed negative log-likelihood of ``labels`` under the f32 logits
+    of ``x`` (B, chunk, D)."""
+    logits = L.unembed(cfg, embed_params, x)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - lab).sum()
 
 
 def chunked_ce_loss(cfg: ModelConfig, embed_params, x, labels, chunk=1024):
-    """Training: not ported (Queue 1 item 13b)."""
-    _refuse_training()
+    """Mean cross-entropy over sequence chunks of ``chunk`` positions (the
+    whole sequence when ``chunk`` does not divide it or covers it), each
+    chunk's (B, chunk, V) logits recomputed in the backward pass."""
+    B, S, _ = x.shape
+    if S % chunk != 0 or S <= chunk:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, S, chunk):
+        total = total + _remat(_ce_sum, cfg, embed_params,
+                               x[:, start:start + chunk],
+                               labels[:, start:start + chunk])
+    return total / (B * S)
 
 
 def _length(n: int, device) -> torch.Tensor:
@@ -76,9 +101,16 @@ def _step_angles(cfg: ModelConfig, pos, B):
     return None
 
 
+def _slot(pos, S):
+    """The cache slot of position ``pos`` (0-d tensor): ``pos`` clamped to
+    the last of ``S`` slots on the device."""
+    return pos.clamp(max=S - 1).reshape(1).long()
+
+
 def _write(cache_t, pos, new):
-    """cache_t (B, S, ...) [:, pos] = new (B, 1, ...), in place."""
-    cache_t.index_copy_(1, pos.reshape(1).long(), new)
+    """cache_t (B, S, ...) [:, pos] = new (B, 1, ...), in place; a ``pos``
+    past the last slot writes the last slot."""
+    cache_t.index_copy_(1, _slot(pos, cache_t.shape[1]), new)
 
 
 class _LM(nn.Module):
@@ -90,9 +122,13 @@ class _LM(nn.Module):
     def device(self) -> torch.device:
         return self.ln_f["scale"].device
 
-    def train_loss(self, batch):
-        """Training: not ported (Queue 1 item 13b)."""
-        _refuse_training()
+    def _loss(self, x, batch, aux=None):
+        """(CE + 0.01 * aux, metrics) of the backbone's output ``x``."""
+        x = L.apply_norm(self.cfg, self.ln_f, x)
+        ce = chunked_ce_loss(self.cfg, self.embed, x, batch["labels"])
+        if aux is None:
+            return ce, {"ce": ce}
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def _inputs_embed(self, batch):
         cfg = self.cfg
@@ -111,9 +147,21 @@ class _LM(nn.Module):
 
 
 def _ffn(cfg, bp: Params, h):
+    """(the block's MLP or MoE output, MoE's auxiliary loss or None)."""
     if "moe" in bp:
-        return E.apply_moe(cfg, bp["moe"], h)[0]
-    return L.apply_mlp(cfg, bp["mlp"], h)
+        return E.apply_moe(cfg, bp["moe"], h)
+    return L.apply_mlp(cfg, bp["mlp"], h), None
+
+
+def _add_aux(total, aux):
+    """total + aux, where either may be None (no MoE layer)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _ffn_params(cfg, init, moe: bool):
@@ -141,18 +189,31 @@ class DecoderLM(_LM):
         p.update(_ffn_params(cfg, init, bool(cfg.n_experts)))
         return p
 
-    def prefill(self, batch):
+    def _block(self, bp, x, angles):
+        """One block over the whole sequence: (x, MoE aux or None, k, v)."""
         cfg = self.cfg
+        h = L.apply_norm(cfg, bp["ln1"], x)
+        q, k, v = L.project_qkv(cfg, bp["attn"], h, angles)
+        x = x + L.attn_out(cfg, bp["attn"], L.causal_attention(cfg, q, k, v))
+        h = L.apply_norm(cfg, bp["ln2"], x)
+        ff, aux = _ffn(cfg, bp, h)
+        return x + ff, aux, k, v
+
+    def train_loss(self, batch):
         x = self._inputs_embed(batch)
-        angles = _pos_angles(cfg, batch, x.shape[1], x.device)
+        angles = _pos_angles(self.cfg, batch, x.shape[1], x.device)
+        aux = _zero(x)
+        for bp in self.blocks:
+            x, a, _, _ = _remat(self._block, bp, x, angles)
+            aux = _add_aux(aux, a)
+        return self._loss(x, batch, aux)
+
+    def prefill(self, batch):
+        x = self._inputs_embed(batch)
+        angles = _pos_angles(self.cfg, batch, x.shape[1], x.device)
         ks, vs = [], []
         for bp in self.blocks:
-            h = L.apply_norm(cfg, bp["ln1"], x)
-            q, k, v = L.project_qkv(cfg, bp["attn"], h, angles)
-            att = L.causal_attention(cfg, q, k, v)
-            x = x + L.attn_out(cfg, bp["attn"], att)
-            h = L.apply_norm(cfg, bp["ln2"], x)
-            x = x + _ffn(cfg, bp, h)
+            x, _, k, v = self._block(bp, x, angles)
             ks.append(k)
             vs.append(v)
         logits = self._head(x[:, -1:])
@@ -193,7 +254,7 @@ class DecoderLM(_LM):
                 att = att[:, :, :cfg.n_kv_heads]
             x = x + L.attn_out(cfg, bp["attn"], att.to(x.dtype))
             h = L.apply_norm(cfg, bp["ln2"], x)
-            x = x + _ffn(cfg, bp, h)
+            x = x + _ffn(cfg, bp, h)[0]
         cache["length"] = pos + 1
         return self._head(x), cache
 
@@ -230,6 +291,40 @@ class HybridLM(_LM):
         p.update(_ffn_params(cfg, init, self._is_moe(idx)))
         return p
 
+    def _group(self, gp, x, angles):
+        """One super-block over the whole sequence: (x, its sub-layers'
+        summed MoE aux or None, the attention's k, v, the Mamba layers'
+        stacked conv and ssm states)."""
+        cfg = self.cfg
+        aux = None
+        convs, ssms = [], []
+        for i, sp in enumerate(gp):
+            h = L.apply_norm(cfg, sp["ln1"], x)
+            if i == 0:
+                q, k, v = L.project_qkv(cfg, sp["attn"], h, angles)
+                x = x + L.attn_out(cfg, sp["attn"],
+                                   L.causal_attention(cfg, q, k, v))
+            else:
+                out, st = M.mamba_forward(cfg, sp["mamba"], h,
+                                          return_state=True)
+                x = x + out
+                convs.append(st["conv"])
+                ssms.append(st["ssm"])
+            h = L.apply_norm(cfg, sp["ln2"], x)
+            ff, a = _ffn(cfg, sp, h)
+            x = x + ff
+            aux = _add_aux(aux, a)
+        return x, aux, k, v, torch.stack(convs), torch.stack(ssms)
+
+    def train_loss(self, batch):
+        x = self._inputs_embed(batch)
+        angles = _pos_angles(self.cfg, batch, x.shape[1], x.device)
+        aux = _zero(x)
+        for gp in self.superblocks:
+            x, a, *_ = _remat(self._group, gp, x, angles)
+            aux = _add_aux(aux, a)
+        return self._loss(x, batch, aux)
+
     def init_cache(self, batch_size, max_len, dtype=None):
         cfg = self.cfg
         dt = L.torch_dtype(dtype) if dtype is not None else L.dtype_of(cfg)
@@ -250,30 +345,15 @@ class HybridLM(_LM):
         }
 
     def prefill(self, batch):
-        cfg = self.cfg
         x = self._inputs_embed(batch)
-        angles = _pos_angles(cfg, batch, x.shape[1], x.device)
+        angles = _pos_angles(self.cfg, batch, x.shape[1], x.device)
         ks, vs, convs, ssms = [], [], [], []
         for gp in self.superblocks:
-            g_conv, g_ssm = [], []
-            for i, sp in enumerate(gp):
-                h = L.apply_norm(cfg, sp["ln1"], x)
-                if i == 0:
-                    q, k, v = L.project_qkv(cfg, sp["attn"], h, angles)
-                    att = L.causal_attention(cfg, q, k, v)
-                    x = x + L.attn_out(cfg, sp["attn"], att)
-                    ks.append(k)
-                    vs.append(v)
-                else:
-                    out, st = M.mamba_forward(cfg, sp["mamba"], h,
-                                              return_state=True)
-                    x = x + out
-                    g_conv.append(st["conv"])
-                    g_ssm.append(st["ssm"])
-                h = L.apply_norm(cfg, sp["ln2"], x)
-                x = x + _ffn(cfg, sp, h)
-            convs.append(torch.stack(g_conv))
-            ssms.append(torch.stack(g_ssm))
+            x, _, k, v, conv, ssm = self._group(gp, x, angles)
+            ks.append(k)
+            vs.append(v)
+            convs.append(conv)
+            ssms.append(ssm)
         logits = self._head(x[:, -1:])
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
                         "conv": torch.stack(convs), "ssm": torch.stack(ssms),
@@ -303,7 +383,7 @@ class HybridLM(_LM):
                     st["ssm"].copy_(st2["ssm"])
                     x = x + out
                 h = L.apply_norm(cfg, sp["ln2"], x)
-                x = x + _ffn(cfg, sp, h)
+                x = x + _ffn(cfg, sp, h)[0]
         cache["length"] = pos + 1
         return self._head(x), cache
 
@@ -320,6 +400,23 @@ class RWKVLM(_LM):
                     "rwkv": R.rwkv_params(cfg, init)})
             for _ in range(cfg.n_layers))
         self.ln_f = Params(L.norm_params(cfg, init))
+
+    def _block(self, bp, x):
+        """One block over the whole sequence: (x, the final WKV state, the
+        time-mix and channel-mix inputs of the last position)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, bp["ln1"], x)
+        tm, s_fin, lx = R.time_mix(cfg, bp["rwkv"], h)
+        x = x + tm
+        h2 = L.apply_norm(cfg, bp["ln2"], x)
+        cm, lcx = R.channel_mix(cfg, bp["rwkv"], h2)
+        return x + cm, s_fin, lx, lcx
+
+    def train_loss(self, batch):
+        x = self._inputs_embed(batch)
+        for bp in self.blocks:
+            x, *_ = _remat(self._block, bp, x)
+        return self._loss(x, batch)
 
     def init_cache(self, batch_size, max_len=0, dtype=None):
         cfg = self.cfg
@@ -339,16 +436,10 @@ class RWKVLM(_LM):
 
     def prefill(self, batch):
         """Forward over the prompt carrying states (chunked recurrence)."""
-        cfg = self.cfg
         x = self._inputs_embed(batch)
         wkv, tm_x, cm_x = [], [], []
         for bp in self.blocks:
-            h = L.apply_norm(cfg, bp["ln1"], x)
-            tm, s_fin, lx = R.time_mix(cfg, bp["rwkv"], h)
-            x = x + tm
-            h2 = L.apply_norm(cfg, bp["ln2"], x)
-            cm, lcx = R.channel_mix(cfg, bp["rwkv"], h2)
-            x = x + cm
+            x, s_fin, lx, lcx = self._block(bp, x)
             wkv.append(s_fin)
             tm_x.append(lx)
             cm_x.append(lcx)
@@ -401,19 +492,53 @@ class EncDecLM(_LM):
         self.ln_enc = Params(L.norm_params(cfg, init))
         self.ln_f = Params(L.norm_params(cfg, init))
 
-    def encode(self, frames):
+    def _enc_block(self, bp, x):
+        cfg = self.cfg
+        h = L.apply_norm(cfg, bp["ln1"], x)
+        q, k, v = L.project_qkv(cfg, bp["attn"], h)
+        att = L.causal_attention(cfg, q, k, v, causal=False)
+        x = x + L.attn_out(cfg, bp["attn"], att)
+        h = L.apply_norm(cfg, bp["ln2"], x)
+        return x + L.apply_mlp(cfg, bp["mlp"], h)
+
+    def encode(self, frames, remat=False):
+        """The encoder's output; ``remat`` recomputes each block in the
+        backward pass (``train_loss``)."""
         cfg = self.cfg
         x = frames.to(L.dtype_of(cfg))
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                        x.device)[None]
         for bp in self.enc_blocks:
-            h = L.apply_norm(cfg, bp["ln1"], x)
-            q, k, v = L.project_qkv(cfg, bp["attn"], h)
-            att = L.causal_attention(cfg, q, k, v, causal=False)
-            x = x + L.attn_out(cfg, bp["attn"], att)
-            h = L.apply_norm(cfg, bp["ln2"], x)
-            x = x + L.apply_mlp(cfg, bp["mlp"], h)
+            x = _remat(self._enc_block, bp, x) if remat \
+                else self._enc_block(bp, x)
         return L.apply_norm(cfg, self.ln_enc, x)
+
+    def _dec_block(self, bp, x, enc_out):
+        """A decoder block over the whole token sequence (causal self
+        attention, cross attention to ``enc_out``): (x, k, v, the cross
+        attention's ek, ev)."""
+        cfg = self.cfg
+        ek, ev = self._cross_kv(bp, enc_out)
+        h = L.apply_norm(cfg, bp["ln1"], x)
+        q, k, v = L.project_qkv(cfg, bp["self_attn"], h)
+        att = L.causal_attention(cfg, q, k, v, causal=True)
+        x = x + L.attn_out(cfg, bp["self_attn"], att)
+        h = L.apply_norm(cfg, bp["ln_x"], x)
+        q, _, _ = L.project_qkv(cfg, bp["cross_attn"], h)
+        att = L.causal_attention(cfg, q, ek, ev, causal=False)
+        x = x + L.attn_out(cfg, bp["cross_attn"], att)
+        h = L.apply_norm(cfg, bp["ln2"], x)
+        return x + L.apply_mlp(cfg, bp["mlp"], h), k, v, ek, ev
+
+    def train_loss(self, batch):
+        cfg = self.cfg
+        enc_out = self.encode(batch["frames"], remat=True)
+        x = L.embed(cfg, self.embed, batch["tokens"])
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
+                                       x.device)[None]
+        for bp in self.dec_blocks:
+            x, *_ = _remat(self._dec_block, bp, x, enc_out)
+        return self._loss(x, batch)
 
     def _cross_kv(self, bp, enc_out):
         """The encoder output's cross-attention K/V (no bias)."""
@@ -445,17 +570,7 @@ class EncDecLM(_LM):
                                        x.device)[None]
         ks, vs, eks, evs = [], [], [], []
         for bp in self.dec_blocks:
-            ek, ev = self._cross_kv(bp, enc_out)
-            h = L.apply_norm(cfg, bp["ln1"], x)
-            q, k, v = L.project_qkv(cfg, bp["self_attn"], h)
-            att = L.causal_attention(cfg, q, k, v, causal=True)
-            x = x + L.attn_out(cfg, bp["self_attn"], att)
-            h = L.apply_norm(cfg, bp["ln_x"], x)
-            q, _, _ = L.project_qkv(cfg, bp["cross_attn"], h)
-            att = L.causal_attention(cfg, q, ek, ev, causal=False)
-            x = x + L.attn_out(cfg, bp["cross_attn"], att)
-            h = L.apply_norm(cfg, bp["ln2"], x)
-            x = x + L.apply_mlp(cfg, bp["mlp"], h)
+            x, k, v, ek, ev = self._dec_block(bp, x, enc_out)
             ks.append(k)
             vs.append(v)
             eks.append(ek)
@@ -471,7 +586,7 @@ class EncDecLM(_LM):
         pos = cache["length"]
         pe_table = L.sinusoidal_positions(cache["k"].shape[2], cfg.d_model,
                                           x.dtype, x.device)
-        x = x + pe_table.index_select(0, pos.reshape(1).long())[None]
+        x = x + pe_table.index_select(0, _slot(pos, pe_table.shape[0]))[None]
         for i, bp in enumerate(self.dec_blocks):
             kc, vc = cache["k"][i], cache["v"][i]
             ek, ev = cache["ek"][i], cache["ev"][i]

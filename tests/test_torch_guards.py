@@ -32,7 +32,7 @@ def test_port_file_imports_no_jax_nor_reference(path):
 
 def test_port_runs_without_jax():
     """With ``jax`` unimportable the port still imports, round-trips a
-    field and serves a SMOKE model on the CPU."""
+    field, serves a SMOKE model and trains one on the CPU."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, repro_torch\n"
@@ -49,6 +49,12 @@ def test_port_runs_without_jax():
         "    '--requests', '1', '--batch', '1', '--gen-len', '2',\n"
         "    '--device', 'cpu']))\n"
         "assert out['tokens'][0].shape == (2,)\n"
+        "import contextlib, io\n"
+        "from repro_torch.launch import train\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    res = train.run(train.parse_args(['--smoke', '--steps', '2',\n"
+        "        '--device', 'cpu']))\n"
+        "assert len(res['losses']) == 2\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               or m == 'repro' for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"

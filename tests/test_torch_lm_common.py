@@ -32,6 +32,17 @@ B, S, N_DECODE = 2, 32, 4
 F32_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's SMOKE steps are thousands of tiny ops: one intra-op
+    thread runs them as fast alone and does not oversubscribe the cores
+    when several test processes share them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(arch, **override):
     """(the JAX package's SMOKE config, the port's), with ``override``."""
     jc = dataclasses.replace(JC.get(arch).SMOKE, **override)

@@ -13,6 +13,7 @@ import pytest
 import repro.configs as JC
 
 import test_torch_lm_common as H
+from test_torch_lm_common import _one_torch_thread  # noqa: F401
 
 DTYPE = "float32"
 

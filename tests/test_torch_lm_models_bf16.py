@@ -17,6 +17,7 @@ import pytest
 import repro.configs as JC
 
 import test_torch_lm_common as H
+from test_torch_lm_common import _one_torch_thread  # noqa: F401
 
 BF16_TOL = 0.05
 

@@ -14,6 +14,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import load_params
 
 import test_torch_lm_common as H
+from test_torch_lm_common import _one_torch_thread  # noqa: F401
 
 # examples/serve_decode.py's arguments
 EXAMPLE = ["--arch", "yi_6b", "--smoke", "--requests", "12", "--batch", "4",
@@ -206,14 +207,6 @@ def test_reference_launcher_splice_drops_the_mamba_states(jamba_no_moe):
 
 
 # ------------------------------------------------------------ guards
-
-def test_training_is_refused():
-    tm = T.build_model(H.configs("yi_6b")[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="13b"):
-        tm.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="13b"):
-        T.chunked_ce_loss(tm.cfg, tm.embed, None, None)
-
 
 def test_serving_entry_points_need_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -42,3 +42,31 @@ def test_nonfinite_byte_equal_and_bitwise(bad, codec):
     for a, b, orig in zip(ref_of_port, port_of_ref, (u, v)):
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
         assert np.array_equal(a.view(np.uint32), orig.view(np.uint32))
+
+
+@pytest.mark.parametrize("bad", list(BAD))
+def test_tiled_track_index_raises_like_the_reference(bad):
+    """A fault of the reference, ported as is: with the track index on, a
+    non-finite value breaks the index's Lemma-1 check.  Both packages
+    raise the same Lemma1ViolationError with the same message from
+    compress_tiled (9x21x27 field, the bad value at flat index 300; two
+    windows of one tile, a grid the reference compiles in seconds)."""
+    from repro.core import tiling as JT
+    from repro.core import trajectory as JTR
+    from repro_torch.core import tiling as TT
+    from repro_torch.core import trajectory as TTR
+
+    u, v = synthetic.vortex_street(T=9, H=21, W=27)
+    u = u.copy()
+    u.flat[300] = BAD[bad]
+    with np.errstate(invalid="ignore"):
+        with pytest.raises(JTR.Lemma1ViolationError) as ref:
+            core.compress_tiled(u, v, core.CompressionConfig(
+                eb=1e-2, mode="abs", backend="numpy"),
+                JT.TileGrid(21, 27, 5))
+        with pytest.raises(TTR.Lemma1ViolationError) as got:
+            repro_torch.compress_tiled(
+                u, v, repro_torch.CompressionConfig(eb=1e-2, mode="abs"),
+                TT.TileGrid(21, 27, 5), device="cpu")
+    assert str(got.value) == str(ref.value)
+    assert "crossed-face count not in {0, 2}" in str(got.value)
