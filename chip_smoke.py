@@ -151,6 +151,17 @@ Phases (any failure exits non-zero; nothing is caught):
               step under torch.profiler (device ms, ops, busy share; then
               its loss + backward and its AdamW apart, each beside its
               half of the bound) and no compression kernel launched
+4k. dryrun -- the dry run (repro_torch.launch.dryrun; no kernel of this
+              package lies on it): cells of the card mesh traced on fake
+              CUDA tensors (flops, bytes, resident memory, bottleneck a
+              cell; none fails), then stablelm-1.6b's train step at the
+              train launcher's batch 8 x seq 128 and a yi-6b decode step
+              at the serve launcher's 4 slots and max-len 128, each
+              traced on fake tensors and run on the card under CostMode:
+              equal flops, bytes and ops, the predicted peak within 10 %
+              of torch.cuda.max_memory_allocated above the held, the
+              roofline time beside the step's wall and profiled device
+              time, stablelm's dot flops beside the 11.79 TFLOP hand count
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -166,6 +177,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -238,7 +250,29 @@ SIZES = {
     "train_parity": (2, 32, 2),
     "train_arch": "stablelm_1_6b",
     "train_steps": 6,
+    # the dry run's cells on the card mesh (the full table: the CLI), and
+    # the two steps held against the card: the train launcher's batch
+    # (arch, batch, seq) and the serve launcher's slots and max-len
+    "dryrun_cells": [("qwen1_5_0_5b", "decode_32k"), ("yi_6b", "decode_32k"),
+                     ("qwen1_5_32b", "decode_32k"),
+                     ("olmoe_1b_7b", "decode_32k"),
+                     ("whisper_small", "decode_32k"),
+                     ("qwen2_vl_7b", "decode_32k"),
+                     ("jamba_1_5_large", "long_500k"),
+                     ("rwkv6_3b", "long_500k"), ("yi_6b", "long_500k")],
+    "dryrun_train": ("stablelm_1_6b", 8, 128),
+    "dryrun_decode": ("yi_6b", 4, 128),
 }
+
+# the dry run's predicted peak against the card's (the readings so far
+# are 0.02 % apart at most), and the hand count of stablelm-1.6b's train
+# step (PERF.md section 5: 8 flops a matmul weight and token) with the
+# band its dot flops must fall in: the block recompute (non-reentrant
+# checkpointing) stops before each block's last matmul, w_down, whose
+# forward is not run again, so the dots come to about 0.96 of the count
+DRYRUN_PEAK_REL = 0.01
+STABLELM_STEP_TFLOP = 11.79
+STABLELM_DOT_BAND = (0.95, 1.0)
 
 # card vs CPU (and decode vs prefill) bounds of the LM phase: the tests'
 # f32 bound and bf16 bound (tests/test_torch_lm_models*.py)
@@ -2320,10 +2354,6 @@ def phase_autotune(dev, main):
 
 
 # ----------------------------------------------------------------------
-# phase 5: the kernel table at the main path's shapes
-# ----------------------------------------------------------------------
-
-# ----------------------------------------------------------------------
 # phase 4i: LM serving
 # ----------------------------------------------------------------------
 
@@ -2768,6 +2798,168 @@ def phase_train(dev):
     say(f"train: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 4k: the dry run and the cost model
+# ----------------------------------------------------------------------
+
+def dry_cost(model_fn, cell, dev, warm=False):
+    """(OpCost, FlopCounterMode's total, memory report) of one step of
+    ``cell`` on the model ``model_fn()`` builds; ``warm`` runs a step
+    once before the counted call (the real step's cuBLAS handles and
+    workspaces), then makes the counted step anew, so that its arguments
+    are the tensors it reads (a decode step gives its cache a new
+    length tensor)."""
+    from repro_torch import roofline
+    from repro_torch.launch import dryrun
+
+    model = model_fn()
+    fn, args = dryrun.make_step(model, cell, dev)
+    if warm:
+        fn()
+        torch.cuda.synchronize()
+        del fn, args
+        fn, args = dryrun.make_step(model, cell, dev)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cost, raw, out = dryrun.trace(fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    outs = dryrun._tensors(out)
+    mem = roofline.memory_report(cost, args, outs)
+    mem["workload"] = roofline.workload_bytes(cost, args, outs)
+    return cost, raw, mem, peak, (model, fn)
+
+
+def held_step(dev, arch, cell, what):
+    """The fake trace and the real step under CostMode of one full-width
+    step: equal flops, bytes and ops; the predicted peak against the
+    card's; the roofline time beside the profiled step."""
+    import repro_torch.configs as C
+    from repro_torch import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import build_model
+
+    cfg = C.get(arch).CONFIG
+    t0 = time.perf_counter()
+    with dryrun.fake_tensors():
+        fake, fraw, fmem, _, _ = dry_cost(
+            lambda: build_model(cfg, device=dev), cell, dev)
+    fake_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    real, rraw, rmem, peak, (model, fn) = dry_cost(
+        lambda: build_model(cfg, device=dev, seed=0), cell, dev, warm=True)
+    real_s = time.perf_counter() - t0
+    diff = {k: (fake.op_counts[k], real.op_counts[k])
+            for k in set(fake.op_counts) | set(real.op_counts)
+            if fake.op_counts[k] != real.op_counts[k]}
+    n_ops = sum(real.op_counts.values())
+    say(f"dryrun {arch} {what}: fake trace {fake_s:.1f} s, real step under "
+        f"CostMode {real_s:.1f} s (build included); flops {fake.flops:.6e} "
+        f"/ {real.flops:.6e}, eager bytes {fake.eager_bytes:.6e} / "
+        f"{real.eager_bytes:.6e}, workload bytes {fmem['workload']:.6e} / "
+        f"{rmem['workload']:.6e}, "
+        f"{sum(fake.op_counts.values())} / {n_ops} ops (fake / real); "
+        f"ops that differ {diff}")
+    assert not diff, diff
+    assert (fake.flops, fake.eager_bytes, fake.dot_flops) == \
+        (real.flops, real.eager_bytes, real.dot_flops)
+    assert fake.peak_bytes == real.peak_bytes and fmem == rmem
+    assert fraw == rraw
+    pred = real.peak_bytes
+    rel = abs(pred - peak) / peak
+    say(f"dryrun {arch} {what}: predicted peak {pred / 2**20:.1f} MiB "
+        f"(resident {fmem['resident_bytes'] / 2**30:.3f} GiB = arguments "
+        f"{fmem['argument_size_in_bytes'] / 2**30:.3f} GiB + the call's "
+        f"peak), card {peak / 2**20:.1f} MiB above the held "
+        f"(torch.cuda.max_memory_allocated), {100 * rel:.2f} % apart; "
+        f"alias {fmem['alias_size_in_bytes'] / 2**30:.3f} GiB")
+    assert rel <= DRYRUN_PEAK_REL, (pred, peak)
+    workload = fmem.pop("workload")
+    rl = roofline.analyze(fake, fmem, fraw, cfg.name, what, "card", 1, cfg,
+                          cell, workload)
+    t_roof = max(rl.t_compute, rl.t_memory)
+    t_work = max(rl.t_compute, rl.t_memory_workload)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    p_wall, busy, rows = device_profile(fn)
+    say(f"dryrun {arch} {what}: roofline {t_roof * 1e3:.3f} ms "
+        f"({rl.bottleneck}: compute {rl.t_compute * 1e3:.3f} ms = "
+        f"{fake.flops / 1e12:.4f} TFLOP ({fake.dot_flops / 1e12:.4f} in "
+        f"dots) at {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s, memory "
+        f"{rl.t_memory * 1e3:.3f} ms = {fake.eager_bytes / 1e9:.3f} GB at "
+        f"{roofline.HBM_BW / 1e12:.2f} TB/s of eager bytes); workload "
+        f"roofline {t_work * 1e3:.3f} ms ({rl.workload_bottleneck}: memory "
+        f"{rl.t_memory_workload * 1e3:.3f} ms = {workload / 1e9:.3f} GB "
+        f"the step must move); step {wall_s * 1e3:.3f} ms "
+        f"wall; profiled {p_wall * 1e3:.3f} ms wall, {busy * 1e3:.3f} ms "
+        f"device ({sum(r[2] for r in rows)} device ops), device "
+        f"{busy / t_roof:.2f}x the eager roofline, {busy / t_work:.2f}x the "
+        f"workload roofline; FlopCounterMode "
+        f"{fraw / 1e12:.4f} TFLOP; nondot "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(
+            fake.nondot_flops.items())))
+    del model, fn
+    torch.cuda.empty_cache()
+    return fake
+
+
+def phase_dryrun(dev):
+    """The dry run (repro_torch.launch.dryrun; no kernel of this package
+    lies on it): cells of the card mesh traced on fake CUDA tensors, then
+    the cost model held against two full-width steps on the card."""
+    import repro_torch.configs as C
+    from repro_torch.configs import CellSpec
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    fns = wrappers()
+    reset_counts(fns)
+    n_ok = 0
+    for arch, shape in SIZES["dryrun_cells"]:
+        row = dryrun.lower_cell(C.get(arch), shape, dryrun.card_mesh(),
+                                "card", dev)
+        if row["status"] == "skip":
+            say(f"dryrun {arch} {shape}: skip ({row['reason'][:60]})")
+            continue
+        assert row["status"] == "ok", row
+        mem = row["memory"]
+        say(f"dryrun {arch} {shape} card: trace {row['trace_s']} s, "
+            f"flops/dev {row['hlo_flops_raw']:.4e}, eager bytes/dev "
+            f"{row['eager_bytes_per_device']:.4e}, workload bytes/dev "
+            f"{row['workload_bytes_per_device']:.4e}, resident "
+            f"{mem['resident_bytes'] / 2**30:.2f} GiB, bottleneck "
+            f"{row['bottleneck']} (workload: {row['workload_bottleneck']}), "
+            f"t_compute {row['t_compute_s']:.4e} s, t_memory "
+            f"{row['t_memory_s']:.4e} s (workload "
+            f"{row['t_memory_workload_s']:.4e} s), model/hlo flops "
+            f"{row['useful_flops_ratio']:.4f}")
+        n_ok += 1
+    assert n_ok, "no dry-run cell ran"
+
+    arch, B, S = SIZES["dryrun_train"]
+    train = held_step(dev, arch, CellSpec("train", S, B), f"train {B}x{S}")
+    ratio = train.dot_flops / (STABLELM_STEP_TFLOP * 1e12)
+    say(f"dryrun {arch} train {B}x{S}: dot flops "
+        f"{train.dot_flops / 1e12:.4f} TFLOP, {ratio:.4f}x the hand count "
+        f"{STABLELM_STEP_TFLOP} TFLOP (8 flops a matmul weight and token), "
+        f"band {STABLELM_DOT_BAND}")
+    assert STABLELM_DOT_BAND[0] <= ratio <= STABLELM_DOT_BAND[1], ratio
+    arch, slots, max_len = SIZES["dryrun_decode"]
+    held_step(dev, arch, CellSpec("decode", max_len, slots,
+                                  cache_len=max_len),
+              f"decode {slots} slots max-len {max_len}")
+    counts = read_counts(fns)
+    assert not any(counts.values()), counts   # no kernel on this path
+    say(f"dryrun: {n_ok} cells, phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# phase 5: the kernel table at the main path's shapes
+# ----------------------------------------------------------------------
+
 def sl_ops_count(xu, xv, g2f, cx, cy, d_max, n_max):
     """f64 operations of the SL stepper on these inputs (any stack)."""
     u = xu.to(torch.float64) * g2f
@@ -3006,6 +3198,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # REPRO_BACKEND=numpy refuses CUDA tensors (the plain versions run on
+    # the CPU only), so every phase would raise
+    assert not os.environ.get("REPRO_BACKEND"), "unset REPRO_BACKEND"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3025,6 +3220,7 @@ def main() -> int:
     phase_autotune(dev, main_runs)
     phase_serve(dev)
     phase_train(dev)
+    phase_dryrun(dev)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

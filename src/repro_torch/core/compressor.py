@@ -33,9 +33,10 @@ ratio with the trajectory-covering units kept at ``eb``
 (autotune/rate.py).
 
 ``CompressionConfig`` keeps the JAX package's fields and defaults.  The
-legacy ``fused=False`` binding raises NotImplementedError naming its
-ROADMAP item; ``backend`` must stay None (the device picks kernel or
-plain version).
+legacy ``fused=False`` binding (or ``REPRO_FUSED=0``) raises
+NotImplementedError naming its ROADMAP item; ``backend`` must stay None
+(the device picks kernel or plain version; ``REPRO_BACKEND=numpy`` refuses
+CUDA tensors and leaves the plain versions on the CPU, ``perfflags``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from . import ebpolicy, encode, fixedpoint, pipeline, predictors, quantize
+from .. import perfflags
 
 FORMAT_VERSION = pipeline.FORMAT_VERSION
 
@@ -103,10 +105,15 @@ def refuse_unported(cfg: CompressionConfig):
             f"backend={cfg.backend!r}: repro_torch has no backend names; "
             "the tensor's device picks the kernel (CUDA) or its plain "
             "version (CPU) -- leave backend=None")
-    if cfg.fused is False:
+    # REPRO_FUSED=0 asks for the legacy binding as fused=False does;
+    # REPRO_BACKEND names a backend the port may not have
+    fused = perfflags.fused_default() if cfg.fused is None else cfg.fused
+    if fused is False:
         raise NotImplementedError(
-            "the legacy fused=False binding is not ported to repro_torch "
-            "(ROADMAP Queue 1 item 4: it exists only for A/B timing)")
+            "the legacy fused=False binding (or REPRO_FUSED=0) is not ported "
+            "to repro_torch (ROADMAP Queue 1 item 4: it exists only for A/B "
+            "timing)")
+    perfflags.backend_override()
     if cfg.codec not in ("host", "device"):
         raise ValueError(f"unknown codec {cfg.codec!r}; expected 'host' "
                          "or 'device'")

@@ -3,8 +3,9 @@
 Each source is compiled on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), for the
 Hopper target ``sm_90a``.  Libraries land in ``build/repro_torch/`` at
-the repository root, named by a digest of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused.  Builds of
+the repository root (``REPRO_JIT_CACHE`` moves them: ``perfflags``),
+named by a digest of the source and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  Builds of
 several sources run as parallel nvcc processes.
 
 There is no fallback: a missing nvcc or a failed build raises.
@@ -21,6 +22,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from .. import perfflags
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -55,10 +58,16 @@ def _flags(name: str) -> list:
     return _COMMON + SOURCES[name]
 
 
+def build_dir() -> Path:
+    """Where libraries are built and loaded from: ``REPRO_JIT_CACHE``'s
+    directory, else ``BUILD_DIR``."""
+    return perfflags.apply_jit_cache() or BUILD_DIR
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return build_dir() / f"lib{name}-{digest[:12]}.so"
 
 
 def build(names=None) -> dict:
@@ -69,7 +78,8 @@ def build(names=None) -> dict:
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     procs = {}
     t0 = time.perf_counter()
@@ -84,7 +94,7 @@ def build(names=None) -> dict:
     for n, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
         seconds[n] = time.perf_counter() - t0
-        (BUILD_DIR / f"{n}.log").write_text(log)
+        (out_dir / f"{n}.log").write_text(log)
         if p.returncode != 0:
             failed.append(f"nvcc {n}.cu failed ({p.returncode}):\n{log}")
             continue

@@ -6,14 +6,13 @@ from __future__ import annotations
 import torch
 
 from . import kernel, ref
+from .. import use_kernel
 
 
 def face_crossed(u_flat: torch.Tensor, v_flat: torch.Tensor,
                  verts: torch.Tensor) -> torch.Tensor:
-    if u_flat.is_cuda:
+    if use_kernel(u_flat, "face_crossed"):
         return kernel.face_crossed(u_flat, v_flat, verts)
-    if u_flat.device.type != "cpu":
-        raise ValueError(f"no face_crossed for device {u_flat.device}")
     return ref.face_crossed(u_flat, v_flat, verts)
 
 
@@ -23,10 +22,8 @@ def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp, delta,
                  forced: torch.Tensor) -> torch.Tensor:
     args = (ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab, slice0,
             slab0, forced)
-    if ur_fp.is_cuda:
+    if use_kernel(ur_fp, "verify_faces"):
         return kernel.verify_faces(*args)
-    if ur_fp.device.type != "cpu":
-        raise ValueError(f"no verify_faces for device {ur_fp.device}")
     return ref.verify_faces(*args)
 
 
@@ -36,8 +33,6 @@ def verify_faces_units(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
                        forced: torch.Tensor) -> torch.Tensor:
     args = (ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab, slice0,
             slab0, forced)
-    if ur_fp.is_cuda:
+    if use_kernel(ur_fp, "verify_faces_units"):
         return kernel.verify_faces_units(*args)
-    if ur_fp.device.type != "cpu":
-        raise ValueError(f"no verify_faces_units for device {ur_fp.device}")
     return ref.verify_faces_units(*args)

@@ -5,11 +5,10 @@ from __future__ import annotations
 import torch
 
 from . import kernel, ref
+from .. import use_kernel
 
 
 def symbol_histogram(sym: torch.Tensor) -> torch.Tensor:
-    if sym.is_cuda:
+    if use_kernel(sym, "symbol_histogram"):
         return kernel.symbol_histogram(sym)
-    if sym.device.type != "cpu":
-        raise ValueError(f"no symbol_histogram for device {sym.device}")
     return ref.symbol_histogram(sym)

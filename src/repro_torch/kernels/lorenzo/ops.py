@@ -6,26 +6,23 @@ from __future__ import annotations
 import torch
 
 from . import kernel, ref
+from .. import use_kernel
 
 
 def lorenzo_residual(ufp: torch.Tensor, vfp: torch.Tensor, k: torch.Tensor,
                      lossless: torch.Tensor, xi_unit: int, block: int,
                      want_x: bool = False):
-    if ufp.is_cuda:
+    if use_kernel(ufp, "lorenzo_residual"):
         return kernel.lorenzo_residual(ufp, vfp, k, lossless, xi_unit, block,
                                        want_x)
-    if ufp.device.type != "cpu":
-        raise ValueError(f"no lorenzo_residual for device {ufp.device}")
     return ref.lorenzo_residual(ufp, vfp, k, lossless, xi_unit, block, want_x)
 
 
 def lorenzo_residual_units(ufp: torch.Tensor, vfp: torch.Tensor,
                            k: torch.Tensor, lossless: torch.Tensor,
                            xi_unit: int, block: int, owned):
-    if ufp.is_cuda:
+    if use_kernel(ufp, "lorenzo_residual_units"):
         return kernel.lorenzo_residual_units(ufp, vfp, k, lossless, xi_unit,
                                              block, owned)
-    if ufp.device.type != "cpu":
-        raise ValueError(f"no lorenzo_residual_units for device {ufp.device}")
     return ref.lorenzo_residual_units(ufp, vfp, k, lossless, xi_unit, block,
                                       owned)

@@ -6,26 +6,23 @@ from __future__ import annotations
 import torch
 
 from . import kernel, ref
+from .. import use_kernel
 
 
 def sl_step(xu_prev: torch.Tensor, xv_prev: torch.Tensor, g2f: float,
             cfl_x: float, cfl_y: float, d_max: float, n_max: int):
-    if xu_prev.is_cuda:
+    if use_kernel(xu_prev, "sl_step"):
         return kernel.sl_step(xu_prev, xv_prev, g2f, cfl_x, cfl_y, d_max,
                               n_max)
-    if xu_prev.device.type != "cpu":
-        raise ValueError(f"no sl_step for device {xu_prev.device}")
     return ref.sl_step(xu_prev, xv_prev, g2f, cfl_x, cfl_y, d_max, n_max)
 
 
 def sl_step_batched(xu_prev: torch.Tensor, xv_prev: torch.Tensor,
                     g2f: float, cfl_x: float, cfl_y: float, d_max: float,
                     n_max: int):
-    if xu_prev.is_cuda:
+    if use_kernel(xu_prev, "sl_step_batched"):
         return kernel.sl_step_batched(xu_prev, xv_prev, g2f, cfl_x, cfl_y,
                                       d_max, n_max)
-    if xu_prev.device.type != "cpu":
-        raise ValueError(f"no sl_step_batched for device {xu_prev.device}")
     return ref.sl_step_batched(xu_prev, xv_prev, g2f, cfl_x, cfl_y, d_max,
                                n_max)
 
@@ -36,10 +33,8 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
               d_max: float, n_max: int):
     args = (c2u, c2v, res_u, res_v, blockmap, flags, block, g2f, cfl_x,
             cfl_y, d_max, n_max)
-    if c2u.is_cuda:
+    if use_kernel(c2u, "sl_decode"):
         return kernel.sl_decode(*args)
-    if c2u.device.type != "cpu":
-        raise ValueError(f"no sl_decode for device {c2u.device}")
     return ref.sl_decode(*args)
 
 
@@ -50,8 +45,6 @@ def sl_decode_units(c2u: torch.Tensor, c2v: torch.Tensor,
                     n_max: int):
     args = (c2u, c2v, res_u, res_v, blockmap, flags, block, g2f, cfl_x,
             cfl_y, d_max, n_max)
-    if c2u.is_cuda:
+    if use_kernel(c2u, "sl_decode_units"):
         return kernel.sl_decode_units(*args)
-    if c2u.device.type != "cpu":
-        raise ValueError(f"no sl_decode_units for device {c2u.device}")
     return ref.sl_decode_units(*args)

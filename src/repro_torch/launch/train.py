@@ -6,7 +6,9 @@ mitigation, on one device (the port of ``repro.launch.train``).
         [--grad-compress] [--device cpu]
 
 Same flags and defaults as the JAX launcher, plus ``--device`` (the CUDA
-device unless ``--device cpu`` is given); ``--mesh`` is refused.
+device unless ``--device cpu`` is given).  ``--mesh 1x1`` trains under the
+sharding rules of the one device's mesh, as without it; a mesh of more
+than one device is refused (sharded training: ROADMAP Queue 1 item 13d).
 
 Fault-tolerance contract:
   * checkpoints are atomic (tmp + rename + LATEST pointer) and saved
@@ -31,8 +33,10 @@ import torch
 from .. import configs as C
 from ..core.compressor import resolve_device
 from ..data.tokens import TokenPipelineConfig, global_batch
+from ..launch.mesh import make_test_mesh
 from ..models.convert import params_from_jax, params_to_jax
 from ..models.transformer import build_model
+from ..parallel import sharding as shd
 from ..train import checkpoint as ckpt
 from ..train import optimizer as opt
 from ..train.grad_compress import GradCompressConfig
@@ -55,12 +59,23 @@ def parse_args(argv=None):
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--deadline-factor", type=float, default=3.0)
     ap.add_argument("--mesh", default="",
-                    help="refused: multi-device training is not ported")
+                    help="e.g. 1x1 (one device; larger meshes are refused)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     return ap.parse_args(argv)
+
+
+def parse_mesh(s):
+    """``--mesh`` "AxB" ("data", "model") or "PxAxB" (with "pod") -> a
+    Mesh; None when empty."""
+    if not s:
+        return None
+    dims = tuple(int(x) for x in s.split("x"))
+    names = ("data", "model")[: len(dims)] if len(dims) <= 2 else (
+        "pod", "data", "model")
+    return make_test_mesh(dims, names)
 
 
 def make_batch(cfg, tp_cfg, step, batch, seq, device):
@@ -134,10 +149,13 @@ def run(args, model=None) -> dict:
     count, the first step, the model, its optimizer state and the step
     function.  ``model`` (optional) is a built model on ``args.device``
     to train in place of ``--arch`` / ``--smoke``."""
-    if args.mesh:
+    mesh = parse_mesh(args.mesh)
+    if mesh is not None and mesh.size > 1:
         raise NotImplementedError(
-            "--mesh: multi-device training is not ported to repro_torch "
-            "(ROADMAP Queue 1 item 13c); it trains on one device")
+            f"--mesh {args.mesh}: training over {mesh.size} devices is not "
+            "ported to repro_torch (ROADMAP Queue 1 item 13d, sharded "
+            "execution); --mesh 1x1 trains on one device")
+    rules = shd.rules_for_mesh(mesh) if mesh else None
     dev = resolve_device(args.device)
     if model is None:
         mod = C.get(args.arch)
@@ -165,28 +183,29 @@ def run(args, model=None) -> dict:
 
     times, losses = [], []
     stragglers = 0
-    for step in range(start_step, args.steps):
-        t0 = time.perf_counter()
-        batch = make_batch(cfg, tp_cfg, step, args.batch, args.seq, dev)
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        if len(times) >= 5:
-            deadline = args.deadline_factor * statistics.median(times)
-            if dt > deadline:
-                stragglers += 1
-                print(f"[train] straggler: step {step} took {dt:.3f}s "
-                      f"(deadline {deadline:.3f}s) -- preemption hook "
-                      f"would fire here", flush=True)
-        times.append(dt)
-        if step % args.log_every == 0:
-            print(f"[train] step {step:5d} loss {loss:.4f} "
-                  f"({dt * 1e3:.0f} ms)", flush=True)
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(args.ckpt_dir, step + 1,
-                      checkpoint_trees(cfg, model, state),
-                      meta={"arch": cfg.name, "loss": loss})
+    with shd.use_rules(rules):
+        for step in range(start_step, args.steps):
+            t0 = time.perf_counter()
+            batch = make_batch(cfg, tp_cfg, step, args.batch, args.seq, dev)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            if len(times) >= 5:
+                deadline = args.deadline_factor * statistics.median(times)
+                if dt > deadline:
+                    stragglers += 1
+                    print(f"[train] straggler: step {step} took {dt:.3f}s "
+                          f"(deadline {deadline:.3f}s) -- preemption hook "
+                          f"would fire here", flush=True)
+            times.append(dt)
+            if step % args.log_every == 0:
+                print(f"[train] step {step:5d} loss {loss:.4f} "
+                      f"({dt * 1e3:.0f} ms)", flush=True)
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(args.ckpt_dir, step + 1,
+                          checkpoint_trees(cfg, model, state),
+                          meta={"arch": cfg.name, "loss": loss})
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps,
                   checkpoint_trees(cfg, model, state),

@@ -1,7 +1,8 @@
 """Shared layer primitives: norms, rotary embeddings (RoPE / M-RoPE),
 GQA attention (full, query-chunked, decode), MLPs, embeddings.
 
-The port of ``repro.models.layers`` (its default, non-baseline form).
+The port of ``repro.models.layers``; ``REPRO_PERF_BASELINE=1`` gives its
+baseline form where the JAX package has one (``perfflags``: H5).
 
 Conventions
 -----------
@@ -26,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import perfflags
+from ..parallel import sharding as shd
 from .config import ModelConfig, dtype_of, pdtype_of, torch_dtype  # noqa: F401
 
 
@@ -101,7 +104,14 @@ def dense_init(init: Init, d_in, d_out, dtype, scale=None):
 
 def rmsnorm(x, scale, eps=1e-6):
     """RMS statistics are an f32 sum of the products of the activation
-    values; the normalisation multiplies in the activation dtype."""
+    values; the normalisation multiplies in the activation dtype.  Under
+    BASELINE (H5) the normalisation runs on an f32 copy of ``x``, with
+    ``scale`` in f32 (pass the parameter, not its cast)."""
+    if perfflags.BASELINE:
+        xf = x.float()
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps)
+        return (out * scale.float()).to(x.dtype)
     xf = x.float()
     var = (xf * xf).sum(-1) / x.shape[-1]
     inv = torch.rsqrt(var + eps)[..., None].to(x.dtype)
@@ -126,7 +136,8 @@ def norm_params(cfg: ModelConfig, init: Init):
 
 def apply_norm(cfg: ModelConfig, p: Params, x):
     if cfg.norm == "rmsnorm":
-        return rmsnorm(x, p.cast("scale", x.dtype))
+        return rmsnorm(x, p["scale"] if perfflags.BASELINE
+                       else p.cast("scale", x.dtype))
     return layernorm(x, p["scale"], p["bias"])
 
 
@@ -166,7 +177,7 @@ def mrope_angles(position_ids, dim, theta, sections):
     dev = position_ids.device
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))
+        torch.tensor(sections, device=dev), output_size=half)
     p = position_ids.float().movedim(0, -1)                    # (B, S, 3)
     return p[..., sec_id] * _freqs(dim, theta, dev)            # (B, S, half)
 
@@ -189,25 +200,37 @@ def qkv_params(cfg: ModelConfig, init: Init):
     return p
 
 
+def project_q(cfg: ModelConfig, p: Params, x, angles=None):
+    """x (B, S, D) -> q (B, S, Hkv, G, Dh) alone (cross attention takes
+    its keys and values from the encoder; the JAX package's compiler
+    drops the unused projections)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = shd.act(x @ p.cast("wq", dt), "logits")   # heads over "model"
+    if cfg.qkv_bias:
+        q = q + p.cast("bq", dt)
+    q = q.reshape(B, S, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                  cfg.head_dim)
+    if angles is not None:
+        q = apply_rope(q, angles[:, :, None, None, :])
+    return q
+
+
 def project_qkv(cfg: ModelConfig, p: Params, x, angles=None):
     """x (B, S, D) -> q (B, S, Hkv, G, Dh), k/v (B, S, Hkv, Dh)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     hkv = cfg.n_kv_heads
-    g = cfg.n_heads // hkv
     dt = x.dtype
-    q = x @ p.cast("wq", dt)
+    q = project_q(cfg, p, x, angles)
     k = x @ p.cast("wk", dt)
     v = x @ p.cast("wv", dt)
     if cfg.qkv_bias:
-        q = q + p.cast("bq", dt)
         k = k + p.cast("bk", dt)
         v = v + p.cast("bv", dt)
-    q = q.reshape(B, S, hkv, g, hd)
     k = k.reshape(B, S, hkv, hd)
     v = v.reshape(B, S, hkv, hd)
     if angles is not None:
-        q = apply_rope(q, angles[:, :, None, None, :])
         k = apply_rope(k, angles[:, :, None, :])
     return q, k, v
 

@@ -5,6 +5,9 @@ h_t = abar_t h_{t-1} + bx_t chunk by chunk of ``scan_chunk`` tokens,
 step by step inside a chunk: the JAX package's intra-chunk
 ``associative_scan`` computes the same recurrence in another association
 order, so the two agree to f32 rounding (tests state the tolerance).
+Each chunk's body is recomputed in the backward pass and casts its output
+to the activation dtype, as the JAX package's scan body does (perf
+iterations H2, H3; ``REPRO_PERF_BASELINE=1`` turns both off).
 Decode is the O(1) recurrent update carrying (conv_state, ssm_state).
 """
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import perfflags
 from .config import ModelConfig
 from .layers import Init, Params, dense_init, pdtype_of
 
@@ -107,12 +111,19 @@ def mamba_forward(cfg: ModelConfig, p: Params, x, chunk=None,
 
     if S % chunk != 0:
         chunk = S  # degenerate sizes: single chunk
+
+    def body(h, xck):
+        abar, bx, c = _ssm_inputs(cfg, p, xck)
+        h_seq, h_last = _chunk_scan(abar, bx, h)
+        y = torch.einsum("blds,bls->bld", h_seq, c)          # (B, chunk, di)
+        return h_last, (y if perfflags.BASELINE else y.to(dt))
+
+    body = perfflags.checkpoint_if_optimized(body)
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
     ys = []
     for start in range(0, S, chunk):
-        abar, bx, c = _ssm_inputs(cfg, p, xc[:, start:start + chunk])
-        h_seq, h = _chunk_scan(abar, bx, h)
-        ys.append(torch.einsum("blds,bls->bld", h_seq, c).to(dt))
+        h, y = body(h, xc[:, start:start + chunk])
+        ys.append(y)
     y = torch.cat(ys, dim=1)
     y = (y + xc * p.cast("d_skip", dt)).to(dt)
     y = y * F.silu(z)

@@ -13,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import perfflags
 from .config import ModelConfig
 from .layers import Init, Params, dense_init, pdtype_of
 
@@ -36,6 +37,14 @@ def moe_params(cfg: ModelConfig, init: Init):
             "w_down": dense_init(init, ffs, d, pd),
         }
     return p
+
+
+def _one_hot(idx, n: int, dtype):
+    """``F.one_hot(idx, n).to(dtype)`` as one comparison: the same values,
+    without one_hot's range checks (a device sync on the CPU) and with
+    the same ops on real and fake tensors (the dry run traces the
+    latter)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
 GROUP_SIZE = 1024  # routing-group size: dispatch memory is O(G * Sg * E * Cg)
@@ -62,8 +71,12 @@ def route(cfg: ModelConfig, p: Params, x):
     sg, G, cap = _groups(cfg, B * S)
     dt = x.dtype
     xf = x.reshape(G, sg, D)
-    # router logits: an f32 sum of the activation-dtype products
-    logits = xf.float() @ p.cast("router", dt).float()
+    # router logits: an f32 sum of the activation-dtype products (H5;
+    # BASELINE: of the f32 activations and router)
+    if perfflags.BASELINE:
+        logits = xf.float() @ p["router"].float()
+    else:
+        logits = xf.float() @ p.cast("router", dt).float()
     probs = torch.softmax(logits, dim=-1)                      # (G, Sg, E)
     # lax.top_k: descending, ties to the lower index (a stable sort)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -71,13 +84,13 @@ def route(cfg: ModelConfig, p: Params, x):
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     # position of each (token, k) within its expert queue (per group)
-    flat = F.one_hot(expert_idx, E).to(torch.int32).reshape(G, sg * K, E)
+    flat = _one_hot(expert_idx, E, torch.int32).reshape(G, sg * K, E)
     pos_in_expert = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat
     pos = (pos_in_expert * flat).sum(-1).reshape(G, sg, K)
     keep = pos < cap
-    disp = (F.one_hot(expert_idx, E).to(dt)[..., None]
-            * F.one_hot(torch.where(keep, pos, cap).long(),
-                        cap + 1).to(dt)[:, :, :, None, :-1])  # (G,Sg,K,E,cap)
+    disp = (_one_hot(expert_idx, E, dt)[..., None]
+            * _one_hot(torch.where(keep, pos, cap), cap + 1,
+                       dt)[:, :, :, None, :-1])               # (G,Sg,K,E,cap)
     return {
         "probs": probs, "gate_vals": gate_vals, "expert_idx": expert_idx,
         "pos": pos, "keep": keep, "cap": cap,
@@ -110,7 +123,7 @@ def apply_moe(cfg: ModelConfig, p: Params, x):
         out = out + (g * (xflat @ sp.cast("w_up", dt))) @ sp.cast("w_down", dt)
 
     # load-balancing auxiliary loss (Switch/GShard form)
-    density = F.one_hot(r["expert_idx"][..., 0], E).float().mean((0, 1))
+    density = _one_hot(r["expert_idx"][..., 0], E, torch.float32).mean((0, 1))
     density_proxy = r["probs"].mean((0, 1))
     aux = (density * density_proxy).sum() * E
     return out.reshape(B, S, D), aux.float()

@@ -11,13 +11,17 @@ static token-shift mixing and per-head RMS normalization of the output.
 
 Prefill is chunk-parallel: within a chunk every decay exponent is a
 difference cum_{t-1} - cum_s clamped at <= 0, so every exp() is <= 1;
-across chunks a loop carries S.  Decode is the O(1) recurrence.
+across chunks a loop carries S, each chunk's body recomputed in the
+backward pass (perf iteration H2; ``REPRO_PERF_BASELINE=1`` turns it
+off).  Decode is the O(1) recurrence.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import perfflags
+from ..parallel import sharding as shd
 from .config import ModelConfig
 from .layers import Init, Params, dense_init, pdtype_of
 
@@ -83,9 +87,10 @@ def _headnorm(x, scale):
 def _projections(cfg, p: Params, x, xs):
     """r, k, v (B, S, D) and the gate g, and log w (B, S, D) f32."""
     dt = x.dtype
-    r = _mix(p, "mix_r", x, xs) @ p.cast("wr", dt)
-    k = _mix(p, "mix_k", x, xs) @ p.cast("wk", dt)
-    v = _mix(p, "mix_v", x, xs) @ p.cast("wv", dt)
+    # D over the model axis before the head split
+    r = shd.act(_mix(p, "mix_r", x, xs) @ p.cast("wr", dt), "logits")
+    k = shd.act(_mix(p, "mix_k", x, xs) @ p.cast("wk", dt), "logits")
+    v = shd.act(_mix(p, "mix_v", x, xs) @ p.cast("wv", dt), "logits")
     g = _mix(p, "mix_g", x, xs) @ p.cast("wg", dt)
     return r, k, v, g, _decay(cfg, p, _mix(p, "mix_w", x, xs))
 
@@ -116,30 +121,35 @@ def time_mix(cfg: ModelConfig, p: Params, x, chunk=None, state=None,
                             device=x.device)
     tmask = torch.ones((chunk, chunk), dtype=torch.bool,
                        device=x.device).tril(-1)[None, :, :, None, None]
-    outs = []
-    S_run = state
-    for start in range(0, S, chunk):
-        sl = slice(start, start + chunk)
-        rc, kc, vc, lwc = rf[:, sl], kf[:, sl], vf[:, sl], lw[:, sl]
+
+    def body(S_in, rc, kc, vc, lwc):
         cum = torch.cumsum(lwc, dim=1)               # (B, L, H, dk)
         cum_prev = cum - lwc                         # cum_{t-1}
         # cross-chunk: r_t decayed to chunk start @ S_in
         out_cross = torch.einsum("blhd,bhdv->blhv", rc * torch.exp(cum_prev),
-                                 S_run)
+                                 S_in)
         # intra-chunk pairwise with safe exponents (<= 0)
         ediff = cum_prev[:, :, None] - cum[:, None, :]      # (B, t, s, H, dk)
         e = torch.where(tmask, torch.exp(torch.clamp(ediff, max=0.0)),
                         torch.zeros((), device=x.device))
-        a = (rc[:, :, None] * kc[:, None] * e).sum(-1)      # (B, t, s, H)
-        out_intra = torch.einsum("btsh,bshv->bthv", a, vc)
+        a = torch.einsum("bthd,bshd,btshd->bths", rc, kc, e)
+        out_intra = torch.einsum("bths,bshv->bthv", a, vc)
         # current-token bonus
-        diag = (rc * (kc * u[None, None])).sum(-1)          # (B, L, H)
+        diag = torch.einsum("blhd,blhd->blh", rc, kc * u[None, None])
         out_diag = diag[..., None] * vc
         # state update (factors <= 1)
         k_dec = kc * torch.exp(cum[:, -1:] - cum)
-        S_run = S_run * torch.exp(cum[:, -1])[..., None] + torch.einsum(
+        S_out = S_in * torch.exp(cum[:, -1])[..., None] + torch.einsum(
             "bshd,bshv->bhdv", k_dec, vc)
-        outs.append(out_cross + out_intra + out_diag)
+        return S_out, out_cross + out_intra + out_diag
+
+    body = perfflags.checkpoint_if_optimized(body)
+    outs = []
+    S_run = state
+    for start in range(0, S, chunk):
+        sl = slice(start, start + chunk)
+        S_run, out = body(S_run, rf[:, sl], kf[:, sl], vf[:, sl], lw[:, sl])
+        outs.append(out)
     out = torch.cat(outs, dim=1).to(dt)
     out = _headnorm(out, p["ln_scale"])
     out = out * F.silu(g)

@@ -524,7 +524,7 @@ class EncDecLM(_LM):
         att = L.causal_attention(cfg, q, k, v, causal=True)
         x = x + L.attn_out(cfg, bp["self_attn"], att)
         h = L.apply_norm(cfg, bp["ln_x"], x)
-        q, _, _ = L.project_qkv(cfg, bp["cross_attn"], h)
+        q = L.project_q(cfg, bp["cross_attn"], h)
         att = L.causal_attention(cfg, q, ek, ev, causal=False)
         x = x + L.attn_out(cfg, bp["cross_attn"], att)
         h = L.apply_norm(cfg, bp["ln2"], x)
@@ -597,7 +597,7 @@ class EncDecLM(_LM):
             att = L.decode_attention(q, kc, vc, pos + 1)
             x = x + L.attn_out(cfg, bp["self_attn"], att.to(x.dtype))
             h = L.apply_norm(cfg, bp["ln_x"], x)
-            q, _, _ = L.project_qkv(cfg, bp["cross_attn"], h)
+            q = L.project_q(cfg, bp["cross_attn"], h)
             att = L.decode_attention(q, ek, ev, ek.shape[1])
             x = x + L.attn_out(cfg, bp["cross_attn"], att.to(x.dtype))
             h = L.apply_norm(cfg, bp["ln2"], x)

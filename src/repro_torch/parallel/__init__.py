@@ -1,2 +1,2 @@
-"""Unit-axis mapping and host worker pools (the JAX package's
-``repro.parallel.sharding`` for tile units)."""
+"""Sharding rules, unit-axis mapping and host worker pools (the JAX
+package's ``repro.parallel.sharding``)."""

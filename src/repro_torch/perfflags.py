@@ -1,0 +1,105 @@
+"""Environment switches of the port (the JAX package's ``perfflags``).
+
+Every switch is read when it is used, so tests can monkeypatch the
+environment (or, for ``BASELINE``, this module's attribute).
+
+``REPRO_PERF_BASELINE=1`` (``BASELINE``) reverts the perf iterations the
+models carry, where the JAX package does:
+
+  H1  not reverted: the reference's BASELINE drops the head-sharding
+      ``act(q, "logits")`` on the q / r, k, v projections, but the
+      port's ``act`` changes nothing on one card, so the port always
+      calls it; H1 has effect only once sharded execution (ROADMAP
+      item 13d) makes ``act`` redistribute
+  H2  recomputation of the Mamba and RWKV chunk bodies in the backward
+      pass (``checkpoint_if_optimized``)
+  H3  Mamba's chunk outputs cast to the activation dtype in the chunk
+      body (BASELINE keeps them f32 until the skip connection)
+  H5  norm and router statistics from the activation-dtype values (vs
+      an f32 copy of the activations and weights)
+
+``REPRO_FUSED=0`` asks ``compress`` for the legacy binding, which the port
+refuses; ``REPRO_BACKEND=numpy`` allows only the plain versions (CPU);
+``REPRO_JIT_CACHE`` moves the directory of the built kernel libraries.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+BASELINE = os.environ.get("REPRO_PERF_BASELINE", "") == "1"
+
+# REPRO_BACKEND values: "" -> the hand-written kernels on CUDA, the plain
+# versions on the CPU; "numpy" -> the JAX package's host reference, which
+# in the port is device="cpu": the plain versions on the CPU, and a CUDA
+# tensor is refused; the rest name TPU / XLA paths the port does not have
+_PLAIN = "numpy"
+_UNPORTED = ("pallas", "xla")
+
+
+def backend_override():
+    """``REPRO_BACKEND`` (None when unset or empty).  Raises ValueError
+    for a backend the port does not have."""
+    name = os.environ.get("REPRO_BACKEND", "") or None
+    if name is None or name == _PLAIN:
+        return name
+    if name in _UNPORTED:
+        raise ValueError(
+            f"REPRO_BACKEND={name}: a TPU / XLA path with no counterpart in "
+            f"repro_torch; leave it unset (the hand-written kernels) or set "
+            f"it to {_PLAIN!r} (their plain PyTorch versions)")
+    raise ValueError(f"REPRO_BACKEND={name}: unknown backend; expected "
+                     f"unset or {_PLAIN!r}")
+
+
+def plain_kernels() -> bool:
+    """Whether ``REPRO_BACKEND=numpy`` asks for the plain versions of the
+    kernels (the ``ops`` dispatchers read it and refuse CUDA tensors)."""
+    return backend_override() == _PLAIN
+
+
+def fused_default():
+    """``REPRO_FUSED=0`` asks for the legacy (seed) binding of
+    ``compress``, which is not ported: ``compress`` raises as it does for
+    ``fused=False``.  Default: the fused pipeline."""
+    return os.environ.get("REPRO_FUSED", "1") != "0"
+
+
+def jit_cache_dir():
+    """``REPRO_JIT_CACHE=<dir>`` puts the built kernel libraries in
+    ``<dir>``; ``REPRO_JIT_CACHE=1`` in ``~/.cache/repro_torch/kernels``.
+    Unset (or 0): ``build/repro_torch`` at the repository root."""
+    v = os.environ.get("REPRO_JIT_CACHE", "").strip()
+    if not v or v == "0":
+        return None
+    if v == "1":
+        return os.path.join(os.path.expanduser("~"), ".cache", "repro_torch",
+                            "kernels")
+    return v
+
+
+def apply_jit_cache(path=None):
+    """The directory the kernel libraries are built into and loaded from:
+    ``path``, else ``jit_cache_dir()``, else None (the default build
+    directory).  A library is named by a digest of its source and flags,
+    so a shared directory never serves a stale build."""
+    path = path or jit_cache_dir()
+    return Path(path) if path else None
+
+
+def checkpoint_if_optimized(fn):
+    """``fn`` with its activations recomputed in the backward pass
+    (``jax.checkpoint``), or ``fn`` itself under BASELINE.  Read when the
+    wrapper is made; without grad the wrapper calls ``fn`` directly."""
+    if BASELINE:
+        return fn
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return remat

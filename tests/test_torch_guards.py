@@ -32,7 +32,8 @@ def test_port_file_imports_no_jax_nor_reference(path):
 
 def test_port_runs_without_jax():
     """With ``jax`` unimportable the port still imports, round-trips a
-    field, serves a SMOKE model and trains one on the CPU."""
+    field, serves a SMOKE model, trains one and dry-runs one on the
+    CPU."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, repro_torch\n"
@@ -55,6 +56,14 @@ def test_port_runs_without_jax():
         "    res = train.run(train.parse_args(['--smoke', '--steps', '2',\n"
         "        '--device', 'cpu']))\n"
         "assert len(res['losses']) == 2\n"
+        "from repro_torch.configs import CellSpec\n"
+        "from repro_torch.launch import dryrun\n"
+        "m = type('M', (), {'CONFIG': C.get('qwen1_5_0_5b').SMOKE,\n"
+        "    'CELLS': {'d': CellSpec('decode', 8, 1, cache_len=8)}})\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    row = dryrun.lower_cell(m, 'd', dryrun.card_mesh(), 'card',\n"
+        "                            'cpu')\n"
+        "assert row['status'] == 'ok'\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               or m == 'repro' for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"

@@ -2,8 +2,9 @@
 checkpoints: resume equals an uninterrupted run, checkpoints cross
 between the two packages bitwise in both directions (the reference's
 on-disk format and stacked layout), both packages refuse a bf16 leaf
-with the same TypeError, ``--mesh`` is refused and the entry points need
-CUDA unless given the CPU."""
+with the same TypeError, ``--mesh`` beyond one device is refused (``1x1``
+trains as without it) and the entry points need CUDA unless given the
+CPU."""
 import json
 import os
 
@@ -186,8 +187,18 @@ def test_main_prints_the_train_lines(capsys):
 
 
 def test_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="13c"):
-        run(tmp_path, "--mesh", "2x2")
+    """A mesh of more than one device needs sharded execution (ROADMAP
+    Queue 1 item 13d)."""
+    for mesh in ("2x2", "2x1", "2x2x2"):
+        with pytest.raises(NotImplementedError, match="13d"):
+            run(tmp_path, "--mesh", mesh)
+
+
+def test_mesh_1x1_trains_as_without(tmp_path):
+    plain = run(tmp_path, "--steps", "2")
+    meshed = run(tmp_path, "--steps", "2", "--mesh", "1x1")
+    assert meshed["losses"] == plain["losses"]
+    assert train.parse_mesh("1x1").shape == {"data": 1, "model": 1}
 
 
 def test_training_entry_points_need_cuda(monkeypatch):
