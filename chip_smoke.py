@@ -162,6 +162,27 @@ Phases (any failure exits non-zero; nothing is caught):
               of torch.cuda.max_memory_allocated above the held, the
               roofline time beside the step's wall and profiled device
               time, stablelm's dot flops beside the 11.79 TFLOP hand count
+4l. shard -- sharded execution of the LM scaffold (DTensor over a
+              torch.distributed device mesh; no kernel of this package
+              lies on it), in child processes (a process group is
+              process-global): (a) with one card, an NCCL world of one
+              runs two train steps of each of the ten SMOKE
+              architectures (f32) with every parameter a DTensor on a
+              (1, 1) mesh, held against the same card's steps without
+              DTensor (the f32 bound of phase 4j; grad_norm within
+              1e-5 relative); with two or more
+              cards, min(count, 8) NCCL ranks run stablelm and yi SMOKE
+              on an (n / 2, 2) mesh, held against one card; (b) the dry
+              run's production meshes on a fake process group with fake
+              CUDA tensors ("cuda" mesh): qwen1.5-0.5b decode_32k on
+              single (16, 16) and multi (2, 16, 16), stablelm-1.6b
+              train_4k on single: per-device flops, eager and workload
+              bytes, collective bytes by kind and by axis, resident MiB,
+              roofline terms, bottleneck, trace seconds, and the decode
+              cell's dot flops times the mesh size within 1 % of the card
+              mesh's, and its flops less eager's layout copies between
+              1 and 1.03 times the card mesh's (the card mesh alone
+              copies each layer's f32 K / V cache for bmm)
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -262,7 +283,16 @@ SIZES = {
                      ("rwkv6_3b", "long_500k"), ("yi_6b", "long_500k")],
     "dryrun_train": ("stablelm_1_6b", 8, 128),
     "dryrun_decode": ("yi_6b", 4, 128),
+    # sharded steps: SMOKE batch (B, S) and steps; the architectures of
+    # the multi-card run; the sharded dry-run cells (arch, shape, mesh)
+    "shard_steps": (8, 32, 2),
+    "shard_multi_archs": ("stablelm_1_6b", "yi_6b"),
+    "shard_cells": [("qwen1_5_0_5b", "decode_32k", "single"),
+                    ("qwen1_5_0_5b", "decode_32k", "multi"),
+                    ("stablelm_1_6b", "train_4k", "single")],
 }
+# one sharded child process (its start-up, trace or steps)
+SHARD_CHILD_TIMEOUT_S = 300
 
 # the dry run's predicted peak against the card's (the readings so far
 # are 0.02 % apart at most), and the hand count of stablelm-1.6b's train
@@ -277,6 +307,10 @@ STABLELM_DOT_BAND = (0.95, 1.0)
 # card vs CPU (and decode vs prefill) bounds of the LM phase: the tests'
 # f32 bound and bf16 bound (tests/test_torch_lm_models*.py)
 LM_F32_TOL = 2e-4
+# the sharded step's grad_norm against one card's, relative (on eight CPU
+# gloo ranks sound runs read at most 2.4e-7, faulty ones at least 3.7e-4:
+# tests/test_torch_sharded.py)
+SHARD_NORM_REL = 1e-5
 LM_BF16_REL = 0.05
 
 # the host codec's container bytes at the main sizes with zlib (the card's
@@ -2957,6 +2991,264 @@ def phase_dryrun(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 4l: sharded execution
+# ----------------------------------------------------------------------
+
+def shard_rank(rank, world, port, out_path, archs, shape):
+    """One NCCL rank of the sharded steps (``--shard-steps``): two train
+    steps of each of ``archs`` (SMOKE, f32) with every parameter a
+    DTensor on a ``shape`` ("data", "model") mesh, and, on rank 0, the
+    same steps on one card without DTensor; rank 0 writes the losses,
+    the largest errors and the step times to ``out_path``."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as C
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", rank=rank, world_size=world,
+                            device_id=dev)
+    fns = wrappers()
+    reset_counts(fns)
+    m = Mesh(shape, ("data", "model"))
+    mesh = m.device_mesh("cuda")
+    rules = shd.rules_for_mesh(m)
+    B, S, n = SIZES["shard_steps"]
+    lr_sum = sum(TRAIN_OPT["lr"] * min((i + 1) / TRAIN_OPT["warmup_steps"],
+                                       1.0) for i in range(n))
+    rows = []
+    for arch in archs:
+        cfg = dataclasses.replace(C.get(arch).SMOKE, dtype="float32")
+        ocfg = opt.AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype)
+        batches = train_batches(cfg, dev, B, S, n)
+
+        def steps(model, sharded):
+            step = ts.make_train_step(model, ocfg)
+            state = ts.init_train_state(model, ocfg)
+            losses, norms, times = [], [], []
+            with shd.use_rules(rules if sharded else None):
+                for b in batches:
+                    if sharded:
+                        b = train.place_batch(b, mesh, rules)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, met = step(state, b)
+                    losses.append(float(met["loss"]))
+                    norms.append(float(met["grad_norm"]))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            return losses, norms, times
+
+        model = build_model(cfg, device="cpu", seed=0).to(dev)
+        shd.distribute_params(model, mesh, rules)
+        losses, norms, times = steps(model, True)
+        params = {k: p.detach().full_tensor()
+                  for k, p in model.named_parameters()}
+        placed = sum(any(q.is_shard() for q in p.placements)
+                     for p in model.parameters())
+        if rank == 0:
+            one = build_model(cfg, device="cpu", seed=0).to(dev)
+            ref_losses, ref_norms, ref_times = steps(one, False)
+            err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+            assert err <= LM_F32_TOL + LM_F32_TOL * max(
+                abs(x) for x in ref_losses), (arch, losses, ref_losses)
+            # the global norm sets the clip factor, which AdamW's first
+            # update hides from the parameters
+            norm_err = max(abs(a - b) / b for a, b in zip(norms, ref_norms))
+            assert norm_err <= SHARD_NORM_REL, (arch, norms, ref_norms)
+            worst = 0.0
+            for k, p in one.named_parameters():
+                ref = p.detach().double()
+                d = (params[k].double() - ref).abs()
+                tol = LM_F32_TOL + 2 * lr_sum + LM_F32_TOL * ref.abs()
+                assert bool((d <= tol).all()), (arch, k, float(d.max()))
+                worst = max(worst, float(d.max()))
+            rows.append({"arch": arch, "losses": losses,
+                         "ref_losses": ref_losses, "loss_err": err,
+                         "norm_err": norm_err,
+                         "param_err": worst, "sharded_leaves": placed,
+                         "step_s": times, "ref_step_s": ref_times})
+        dist.barrier()
+    counts = read_counts(fns)
+    assert not any(counts.values()), counts   # no kernel on this path
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"world": world, "mesh": list(shape), "rows": rows}, f)
+    dist.destroy_process_group()
+
+
+def shard_steps_child(out_path: str) -> int:
+    """``--shard-steps``: the sharded steps on every card of the machine
+    (an even count, at most 8), or an NCCL world of one on one card."""
+    import socket
+
+    import repro_torch.configs as C
+
+    n = min(torch.cuda.device_count(), 8)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if n == 1:
+        shard_rank(0, 1, port, out_path, list(C.ARCHS), (1, 1))
+        return 0
+    import torch.multiprocessing as mp
+
+    n -= n % 2
+    mp.spawn(shard_rank, args=(n, port, out_path,
+                               list(SIZES["shard_multi_archs"]),
+                               (n // 2, 2)), nprocs=n)
+    return 0
+
+
+def start_child(cmd):
+    """A child process in a session of its own (its own children -- the
+    NCCL ranks of ``--shard-steps`` -- stop with it in ``stop_child``)."""
+    return subprocess.Popen(cmd, env=child_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def stop_child(proc):
+    """Kill ``proc``'s session if it is still running."""
+    if proc.poll() is None:
+        import signal
+
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def child_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    return env
+
+
+def phase_shard(dev):
+    """Sharded execution (module docstring, 4l): real steps over NCCL, then
+    the dry run's production meshes on a fake process group (the three
+    cells' children at once), each in a child process."""
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_path = ROOT / "build" / "shard_steps.json"
+    t0 = time.perf_counter()
+    proc = start_child([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--shard-steps", str(out_path)])
+    try:
+        out, _ = proc.communicate(timeout=SHARD_CHILD_TIMEOUT_S)
+    finally:
+        stop_child(proc)
+    steps_s = time.perf_counter() - t0
+    assert proc.returncode == 0, out[-6000:]
+    with open(out_path) as f:
+        steps = json.load(f)
+    world = steps["world"]
+    if world == 1:
+        say("shard steps: one card -- an NCCL world of one on a (1, 1) "
+            "mesh, every parameter a DTensor, against the same card "
+            "without DTensor; multi-rank execution is shown on CPU gloo "
+            "ranks (tests/test_torch_sharded*.py), not here")
+    else:
+        say(f"shard steps: {world} cards -- {world} NCCL ranks on a "
+            f"{tuple(steps['mesh'])} mesh against one card")
+    for row in steps["rows"]:
+        say(f"shard steps {row['arch']} world {world}: losses "
+            + ", ".join(f"{x:.6f}" for x in row["losses"])
+            + f" (one card {', '.join(f'{x:.6f}' for x in row['ref_losses'])}"
+            f"), max |err| loss {row['loss_err']:.3e} params "
+            f"{row['param_err']:.3e}, grad_norm rel {row['norm_err']:.3e}, "
+            f"{row['sharded_leaves']} leaves "
+            f"sharded; step s "
+            + ", ".join(f"{x:.4f}" for x in row["step_s"])
+            + f" (one card {', '.join(f'{x:.4f}' for x in row['ref_step_s'])})")
+    say(f"shard steps: child {steps_s:.1f} s")
+
+    cells = []
+    for arch, shape, mesh in SIZES["shard_cells"]:
+        path = ROOT / "build" / f"shard_{arch}_{shape}_{mesh}.json"
+        cells.append(((arch, shape, mesh), path, start_child(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--device", "cuda",
+             "--out", str(path)])))
+    try:
+        shard_cells(dev, cells)
+    finally:
+        for _, _, proc in cells:
+            stop_child(proc)
+    say(f"shard: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def shard_cells(dev, cells):
+    """Read the sharded dry-run children's rows (phase 4l (b))."""
+    import repro_torch.configs as C
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import build_model
+
+    mod = C.get("qwen1_5_0_5b")
+    with dryrun.fake_tensors():
+        fn, _ = dryrun.make_step(build_model(mod.CONFIG, device=dev),
+                                 mod.CELLS["decode_32k"], dev)
+        card = dryrun.trace(fn)[0]
+    card_dots = card.dot_flops
+    card_net = card.flops - card.copy_flops
+    for (arch, shape, mesh), path, proc in cells:
+        out, _ = proc.communicate(timeout=SHARD_CHILD_TIMEOUT_S)
+        assert proc.returncode == 0 and "1 ok, 0 skip, 0 fail" in out, \
+            out[-3000:]
+        with open(path) as f:
+            row, = json.load(f)
+        mem = row["memory"]
+        say(f"shard dryrun {arch} {shape} {mesh} ({row['chips']} fake "
+            f"cards, cuda mesh): trace {row['trace_s']} s, flops/dev "
+            f"{row['hlo_flops_raw']:.4e} (dots "
+            f"{row['dot_flops_per_device']:.4e}), eager bytes/dev "
+            f"{row['eager_bytes_per_device']:.4e}, workload bytes/dev "
+            f"{row['workload_bytes_per_device']:.4e}, collective bytes/dev "
+            f"{row['coll_bytes_per_device']:.4e} by kind "
+            f"{json.dumps(row['coll_breakdown'])} by axis "
+            f"{json.dumps(row['coll_by_axis'])} over "
+            + ", ".join(f"{a} {v['link']} {v['bytes_per_s'] / 1e9:.0f} GB/s"
+                        for a, v in row["axis_links"].items())
+            + f", resident {mem['resident_bytes'] / 2**20:.1f} MiB, "
+            f"t_compute {row['t_compute_s']:.4e} s, t_memory "
+            f"{row['t_memory_s']:.4e} s (workload "
+            f"{row['t_memory_workload_s']:.4e} s), t_collective "
+            f"{row['t_collective_s']:.4e} s, bottleneck {row['bottleneck']} "
+            f"(workload: {row['workload_bottleneck']})")
+        assert row["coll_bytes_per_device"] > 0, row
+        if (arch, shape) == ("qwen1_5_0_5b", "decode_32k"):
+            # batch and heads divide both meshes: no dot is repeated
+            total = row["dot_flops_per_device"] * row["chips"]
+            say(f"shard dryrun {arch} {shape} {mesh}: dot flops/dev x "
+                f"{row['chips']} = {total:.4e}, card mesh {card_dots:.4e} "
+                f"({total / card_dots:.6f}x)")
+            assert abs(total - card_dots) <= 0.01 * card_dots, \
+                (total, card_dots)
+            # every flop but eager's layout copies: replication only adds
+            # (the card mesh's einsum copies the f32 K / V cache into
+            # bmm's layout; a shard with one KV head needs no copy)
+            net = (row["hlo_flops_raw"] - row["copy_flops_per_device"]) \
+                * row["chips"]
+            say(f"shard dryrun {arch} {shape} {mesh}: flops/dev x "
+                f"{row['chips']} = {row['hlo_flops_raw'] * row['chips']:.4e}"
+                f", card mesh {card.flops:.4e} "
+                f"({row['hlo_flops_raw'] * row['chips'] / card.flops:.6f}x); "
+                f"less copies {net:.4e} vs {card_net:.4e} "
+                f"({net / card_net:.6f}x; card copies {card.copy_flops:.4e})")
+            assert card_net <= net <= 1.03 * card_net, (net, card_net)
+
+
+# ----------------------------------------------------------------------
 # phase 5: the kernel table at the main path's shapes
 # ----------------------------------------------------------------------
 
@@ -3221,6 +3513,7 @@ def main() -> int:
     phase_serve(dev)
     phase_train(dev)
     phase_dryrun(dev)
+    phase_shard(dev)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
@@ -3232,4 +3525,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-steps"] and torch.cuda.is_available():
+        sys.path.insert(0, str(ROOT / "src"))
+        sys.exit(shard_steps_child(sys.argv[2]))
     sys.exit(main())

@@ -1,14 +1,23 @@
 """End-to-end training launcher with checkpoint/restart and straggler
-mitigation, on one device (the port of ``repro.launch.train``).
+mitigation (the port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \
         --smoke --steps 200 --ckpt-dir /tmp/ckpt [--resume] \
         [--grad-compress] [--device cpu]
 
+    # sharded, one process per rank (NCCL on the cards, gloo on the CPU)
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 8 \
+        -m repro_torch.launch.train --smoke --mesh 4x2 [--device cpu]
+
 Same flags and defaults as the JAX launcher, plus ``--device`` (the CUDA
 device unless ``--device cpu`` is given).  ``--mesh 1x1`` trains under the
-sharding rules of the one device's mesh, as without it; a mesh of more
-than one device is refused (sharded training: ROADMAP Queue 1 item 13d).
+sharding rules of the one device's mesh, as without it.  A larger mesh
+("AxB": ("data", "model"); "PxAxB" adds "pod") trains over as many ranks,
+started by ``torch.distributed.run``: every parameter and optimizer
+moment is a DTensor placed by ``param_specs``, each batch is placed
+``P(dp)``, and only rank 0 logs and writes checkpoints (every rank
+gathers them).  A mesh whose size is not the world size raises
+ValueError.
 
 Fault-tolerance contract:
   * checkpoints are atomic (tmp + rename + LATEST pointer) and saved
@@ -59,7 +68,9 @@ def parse_args(argv=None):
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--deadline-factor", type=float, default=3.0)
     ap.add_argument("--mesh", default="",
-                    help="e.g. 1x1 (one device; larger meshes are refused)")
+                    help="e.g. 4x2 (data x model) or 2x2x2 (pod x data x "
+                         "model); more than one device needs as many "
+                         "ranks (torch.distributed.run)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -105,12 +116,26 @@ def make_batch(cfg, tp_cfg, step, batch, seq, device):
     return {k: v.to(device) for k, v in out.items()}
 
 
+def place_batch(batch, mesh, rules) -> dict:
+    """The global ``batch`` (the same on every rank) as DTensors on the
+    device mesh ``mesh``: batch axis over the data axes (``P(dp)``;
+    position_ids (3, B, S) on its axis 1)."""
+    return {k: shd.place(v, shd.P(None, rules.dp) if k == "position_ids"
+                         else shd.P(rules.dp), mesh)
+            for k, v in batch.items()}
+
+
+def _host(t):
+    t = t.detach()
+    return (t.full_tensor() if shd.is_sharded(t) else t).cpu()
+
+
 def checkpoint_trees(cfg, model, state) -> dict:
-    """{"params", "opt"} in the reference's layout, on the host."""
+    """{"params", "opt"} in the reference's layout, on the host (sharded
+    tensors gathered: every rank calls it)."""
 
     def tree(named):
-        return params_to_jax(cfg, {n: t.detach().cpu()
-                                   for n, t in named.items()})
+        return params_to_jax(cfg, {n: _host(t) for n, t in named.items()})
 
     adam = state["adam"]
     opt_tree = {"adam": {"m": tree(adam["m"]), "v": tree(adam["v"]),
@@ -132,7 +157,11 @@ def load_trees(cfg, model, state, trees):
                 f"checkpoint leaves {sorted(set(sd) ^ set(named))[:4]} do "
                 "not match the model")
         for n, t in named.items():
-            t.copy_(sd[n])
+            if shd.is_sharded(t):      # this rank's slice of the array
+                t.to_local().copy_(shd.place(
+                    sd[n], shd.spec_of(t), t.device_mesh).to_local())
+            else:
+                t.copy_(sd[n])
 
     into(dict(model.named_parameters()), trees["params"])
     adam, src = state["adam"], trees["opt"]["adam"]
@@ -143,24 +172,65 @@ def load_trees(cfg, model, state, trees):
         into(state["gc_residuals"], trees["opt"]["gc_residuals"])
 
 
+def _sharded_device(mesh, device):
+    """This rank's device for ``mesh`` (more than one device): the
+    process group of a ``torch.distributed.run`` launch, started here if
+    none is running; ValueError unless its world size is the mesh's."""
+    import os
+
+    import torch.distributed as dist
+
+    from .mesh import init_distributed
+
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        raise ValueError(
+            f"--mesh {'x'.join(map(str, mesh.axis_sizes))} needs "
+            f"{mesh.size} ranks: start them with python -m "
+            f"torch.distributed.run --nproc-per-node {mesh.size} -m "
+            "repro_torch.launch.train ...")
+    kind = resolve_device(device).type
+    dev = init_distributed(kind)
+    return dev, mesh.device_mesh(kind)
+
+
+def save_checkpoint(directory, step, cfg, model, state, loss, lead,
+                    dmesh):
+    """The checkpoint of ``model`` and ``state`` at ``step``.  On a mesh
+    (``dmesh``) every rank calls it: each gathers the trees, rank 0
+    (``lead``) writes them -- the same bytes as a one-device save of the
+    same values -- and the others wait for it at a barrier."""
+    trees = checkpoint_trees(cfg, model, state)
+    if lead:
+        ckpt.save(directory, step, trees,
+                  meta={"arch": cfg.name, "loss": loss})
+    if dmesh is not None:
+        torch.distributed.barrier()
+
+
 def run(args, model=None) -> dict:
     """Train ``args.steps`` steps (from LATEST with ``--resume``); returns
     the losses of the steps run, their host-clock seconds, the straggler
     count, the first step, the model, its optimizer state and the step
     function.  ``model`` (optional) is a built model on ``args.device``
-    to train in place of ``--arch`` / ``--smoke``."""
+    to train in place of ``--arch`` / ``--smoke`` (one device only).
+    On a mesh of more than one device every rank runs this (module
+    docstring)."""
     mesh = parse_mesh(args.mesh)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training over {mesh.size} devices is not "
-            "ported to repro_torch (ROADMAP Queue 1 item 13d, sharded "
-            "execution); --mesh 1x1 trains on one device")
     rules = shd.rules_for_mesh(mesh) if mesh else None
-    dev = resolve_device(args.device)
+    dmesh = None
+    if mesh is not None and mesh.size > 1:
+        if model is not None:
+            raise ValueError("run(model=...) trains on one device")
+        dev, dmesh = _sharded_device(mesh, args.device)
+    else:
+        dev = resolve_device(args.device)
+    lead = dmesh is None or torch.distributed.get_rank() == 0
     if model is None:
         mod = C.get(args.arch)
         model = build_model(mod.SMOKE if args.smoke else mod.CONFIG,
                             device=dev, seed=args.seed)
+        if dmesh is not None:
+            shd.distribute_params(model, dmesh, rules)
     elif model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, --device is {dev}")
     cfg = model.cfg
@@ -179,7 +249,8 @@ def run(args, model=None) -> dict:
             args.ckpt_dir, checkpoint_trees(cfg, model, state))
         load_trees(cfg, model, state, restored)
         start_step = manifest["step"]
-        print(f"[train] resumed from step {start_step}", flush=True)
+        if lead:
+            print(f"[train] resumed from step {start_step}", flush=True)
 
     times, losses = [], []
     stragglers = 0
@@ -187,6 +258,8 @@ def run(args, model=None) -> dict:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
             batch = make_batch(cfg, tp_cfg, step, args.batch, args.seq, dev)
+            if dmesh is not None:
+                batch = place_batch(batch, dmesh, rules)
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
@@ -195,31 +268,36 @@ def run(args, model=None) -> dict:
                 deadline = args.deadline_factor * statistics.median(times)
                 if dt > deadline:
                     stragglers += 1
-                    print(f"[train] straggler: step {step} took {dt:.3f}s "
-                          f"(deadline {deadline:.3f}s) -- preemption hook "
-                          f"would fire here", flush=True)
+                    if lead:
+                        print(f"[train] straggler: step {step} took "
+                              f"{dt:.3f}s (deadline {deadline:.3f}s) -- "
+                              "preemption hook would fire here", flush=True)
             times.append(dt)
-            if step % args.log_every == 0:
+            if lead and step % args.log_every == 0:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
                       f"({dt * 1e3:.0f} ms)", flush=True)
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(args.ckpt_dir, step + 1,
-                          checkpoint_trees(cfg, model, state),
-                          meta={"arch": cfg.name, "loss": loss})
+                save_checkpoint(args.ckpt_dir, step + 1, cfg, model,
+                                state, loss, lead, dmesh)
     if args.ckpt_dir:
-        ckpt.save(args.ckpt_dir, args.steps,
-                  checkpoint_trees(cfg, model, state),
-                  meta={"arch": cfg.name, "loss": losses[-1]})
+        save_checkpoint(args.ckpt_dir, args.steps, cfg, model, state,
+                        losses[-1], lead, dmesh)
     return {"losses": losses, "seconds": times, "stragglers": stragglers,
             "start_step": start_step, "model": model, "state": state,
             "step_fn": step_fn, "tp_cfg": tp_cfg}
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
+    started = dist.is_initialized()
     out = run(parse_args(argv))
     losses = out["losses"]
-    print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-          f"{out['stragglers']} straggler events", flush=True)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"{out['stragglers']} straggler events", flush=True)
+    if dist.is_initialized() and not started:
+        dist.destroy_process_group()
     return 0
 
 

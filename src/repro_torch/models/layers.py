@@ -18,6 +18,10 @@ Conventions
   heads so GQA never materializes repeated KV.
 * KV caches store un-repeated KV heads: (B, S, Hkv, Dh).
 * dtypes are explicit everywhere, as in the JAX package.
+* sharded execution: parameters and activations may be DTensors on a
+  device mesh (``parallel.sharding``); ``shd.act`` places activations as
+  the reference's ``with_sharding_constraint`` does, and attention runs
+  on each device's batch and head shards (``shd.on_shards``).
 """
 from __future__ import annotations
 
@@ -60,14 +64,25 @@ class Params(nn.Module):
         return name in self._parameters or name in self._modules
 
     def cast(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """On a mesh, the cast is then gathered over the FSDP axis (the
+        held copy stays sharded): the product with a batch-sharded
+        activation then computes each device's batch and tensor-parallel
+        shard alone, as in the JAX package (FSDP + tensor parallelism)."""
         w = self._parameters[name]
+        if shd.is_sharded(w):
+            return shd.gather_fsdp(self._cast(name, w, dtype))
+        return self._cast(name, w, dtype)
+
+    def _cast(self, name, w, dtype):
         if w.dtype == dtype:
             return w
         if w.requires_grad and torch.is_grad_enabled():
             return w.to(dtype)
         held = self._casts.get((name, dtype))
-        if held is None or held[0] != w._version:
-            held = (w._version, w.detach().to(dtype))
+        # a DTensor's optimizer step writes its local shard in place
+        version = (w.to_local() if shd.is_sharded(w) else w)._version
+        if held is None or held[0] != version:
+            held = (version, w.detach().to(dtype))
             self._casts[(name, dtype)] = held
         return held[1]
 
@@ -204,13 +219,14 @@ def project_q(cfg: ModelConfig, p: Params, x, angles=None):
     """x (B, S, D) -> q (B, S, Hkv, G, Dh) alone (cross attention takes
     its keys and values from the encoder; the JAX package's compiler
     drops the unused projections)."""
-    B, S, _ = x.shape
     dt = x.dtype
-    q = shd.act(x @ p.cast("wq", dt), "logits")   # heads over "model"
+    q = x @ p.cast("wq", dt)
+    if not perfflags.BASELINE:
+        q = shd.act(q, "logits")   # heads over "model" (H1)
     if cfg.qkv_bias:
         q = q + p.cast("bq", dt)
-    q = q.reshape(B, S, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                  cfg.head_dim)
+    q = shd.unflatten(q, 2, (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                             cfg.head_dim))
     if angles is not None:
         q = apply_rope(q, angles[:, :, None, None, :])
     return q
@@ -218,7 +234,6 @@ def project_q(cfg: ModelConfig, p: Params, x, angles=None):
 
 def project_qkv(cfg: ModelConfig, p: Params, x, angles=None):
     """x (B, S, D) -> q (B, S, Hkv, G, Dh), k/v (B, S, Hkv, Dh)."""
-    B, S, _ = x.shape
     hd = cfg.head_dim
     hkv = cfg.n_kv_heads
     dt = x.dtype
@@ -228,8 +243,8 @@ def project_qkv(cfg: ModelConfig, p: Params, x, angles=None):
     if cfg.qkv_bias:
         k = k + p.cast("bk", dt)
         v = v + p.cast("bv", dt)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    k = shd.unflatten(k, 2, (hkv, hd))
+    v = shd.unflatten(v, 2, (hkv, hd))
     if angles is not None:
         k = apply_rope(k, angles[:, :, None, :])
     return q, k, v
@@ -244,10 +259,23 @@ def _softmax_attend(q, k, v, mask, scale):
     return torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
 
 
+def _heads(*xs):
+    """The "heads" spec of each of ``xs`` (batch over dp, the third
+    dimension -- the (KV) heads -- over tp), for ``shd.on_shards``."""
+    return [shd.spec("heads", x.shape) for x in xs]
+
+
 def causal_attention(cfg: ModelConfig, q, k, v, causal=True, chunk=None):
     """Full or query-chunked causal attention (chunks of ``chunk``
     queries when Sq > chunk and chunk divides Sq; the mask is
-    tril(k = Skv - Sq))."""
+    tril(k = Skv - Sq)).  On a mesh, each device attends its own batch
+    and KV-head shards (all heads where the heads do not divide)."""
+    return shd.on_shards(
+        lambda q, k, v: _causal_attention(cfg, q, k, v, causal, chunk),
+        (q, k, v), _heads(q, k, v), [0])
+
+
+def _causal_attention(cfg: ModelConfig, q, k, v, causal, chunk):
     B, Sq, hkv, g, hd = q.shape
     Skv = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
@@ -294,8 +322,16 @@ def decode_attention(q, k_cache, v_cache, length):
 
     q (B, 1, Hkv, G, Dh); caches (B, S, Hkv, Dh); length: the valid
     prefix (an int or a 0-d tensor; positions past it get -1e30).  int8
-    caches are dequantized at use.
+    caches are dequantized at use.  On a mesh, each device attends its own
+    batch and KV-head shards of the caches.
     """
+    return shd.on_shards(
+        lambda q, k, v, n: _decode_attention(q, k, v, n),
+        (q, k_cache, v_cache, length),
+        _heads(q, k_cache, v_cache) + [None], [0])
+
+
+def _decode_attention(q, k_cache, v_cache, length):
     S = k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
@@ -309,7 +345,8 @@ def decode_attention(q, k_cache, v_cache, length):
 
 def attn_out(cfg: ModelConfig, p: Params, out):
     B, S = out.shape[0], out.shape[1]
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    # on a mesh the heads' gradient must come back in their layout
+    out = shd.hold(out.reshape(B, S, cfg.n_heads * cfg.head_dim))
     return out @ p.cast("wo", out.dtype)
 
 
@@ -357,7 +394,36 @@ def embed_params(cfg: ModelConfig, init: Init):
 
 
 def embed(cfg: ModelConfig, p: Params, tokens):
-    return p["embedding"][tokens.long()].to(dtype_of(cfg))
+    table = p["embedding"]
+    if shd.is_sharded(table):
+        return _embed_sharded(table, tokens).to(dtype_of(cfg))
+    return table[tokens.long()].to(dtype_of(cfg))
+
+
+def _embed_sharded(table, tokens):
+    """The embedding rows of ``tokens`` from a table sharded over the
+    vocabulary (tp) and the model dimension (fsdp): the table gathered
+    over fsdp, each tensor-parallel rank reads the rows of its own
+    vocabulary slice (zeros elsewhere) for its batch shard, and the
+    output is their partial sum over tp (Megatron's vocab-parallel
+    embedding; the reference's gather under GSPMD)."""
+    r = shd.current_rules()
+    mesh = table.device_mesh
+    sizes = shd.mesh_sizes(mesh)
+    spec = shd.fit_spec(shd.P(r.tp, None), table.shape, sizes)
+    tp = spec[0]
+    rows = table.shape[0] // (sizes[tp] if tp else 1)
+    first = mesh.get_local_rank(tp) * rows if tp else 0
+
+    def lookup(t, tok):
+        idx = tok.long() - first
+        mine = (idx >= 0) & (idx < rows)
+        out = t[idx.clamp(0, rows - 1)]
+        return out * mine[..., None].to(out.dtype)
+
+    return shd.on_shards(lookup, (shd.gather_fsdp(table), tokens),
+                         [spec, shd.spec("tokens", tokens.shape)], [1],
+                         partial={0: (tp,) if tp else ()})
 
 
 def unembed(cfg: ModelConfig, p: Params, x):

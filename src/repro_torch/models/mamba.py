@@ -9,6 +9,7 @@ Each chunk's body is recomputed in the backward pass and casts its output
 to the activation dtype, as the JAX package's scan body does (perf
 iterations H2, H3; ``REPRO_PERF_BASELINE=1`` turns both off).
 Decode is the O(1) recurrent update carrying (conv_state, ssm_state).
+On a mesh the recurrence runs on each device's batch and channel shards.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import perfflags
+from ..parallel import sharding as shd
 from .config import ModelConfig
 from .layers import Init, Params, dense_init, pdtype_of
 
@@ -77,6 +79,25 @@ def _chunk_scan(abar, bx, h0):
     return torch.stack(hs, dim=1), h
 
 
+def _scan_out(abar, bx, c, h0):
+    """(y (B, L, di), h at the chunk's end) of a chunk from h0."""
+    h_seq, h_last = _chunk_scan(abar, bx, h0)
+    return torch.einsum("blds,bls->bld", h_seq, c), h_last
+
+
+def _scan_specs(abar, c, h0):
+    """Batch over dp, channels (di) over tp: the recurrence never crosses
+    a shard."""
+    r = shd.current_rules()
+    if r is None or not shd.is_sharded(abar):
+        return [None] * 4, [None] * 2
+    chan = shd.fit_spec(shd.P(r.dp, None, r.tp, None), abar.shape,
+                        shd.mesh_sizes(abar.device_mesh))
+    dp, tp = chan[0], chan[2]
+    return ([chan, chan, shd.P(dp, None, None), shd.P(dp, tp, None)],
+            [shd.P(dp, None, tp), shd.P(dp, tp, None)])
+
+
 def causal_conv(cfg, p: Params, x, conv_state=None):
     """Depthwise causal conv along time.  x (B, L, di)."""
     dc = cfg.mamba_d_conv
@@ -114,9 +135,9 @@ def mamba_forward(cfg: ModelConfig, p: Params, x, chunk=None,
 
     def body(h, xck):
         abar, bx, c = _ssm_inputs(cfg, p, xck)
-        h_seq, h_last = _chunk_scan(abar, bx, h)
-        y = torch.einsum("blds,bls->bld", h_seq, c)          # (B, chunk, di)
-        return h_last, (y if perfflags.BASELINE else y.to(dt))
+        ins, outs = _scan_specs(abar, c, h)
+        y, h_last = shd.on_shards(_scan_out, (abar, bx, c, h), ins, outs)
+        return h_last, (y if perfflags.BASELINE else y.to(dt))  # (B, L, di)
 
     body = perfflags.checkpoint_if_optimized(body)
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)

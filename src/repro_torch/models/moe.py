@@ -5,6 +5,15 @@ The port of ``repro.models.moe``: top-k routing in independent groups of
 each (token, k) placed in its expert's queue by a cumulative sum, the
 ones past the capacity dropped, one-hot dispatch / combine einsums,
 shared experts and the load-balancing auxiliary loss.
+
+On a mesh (DTensor parameters) the routed experts run on each device's
+shards: expert parallelism over the model axis (each rank its E / tp
+experts' weights, gathered over the data axis, and a partial sum of the
+output over the model axis), the routing groups over the data axes when
+whole groups fall on each data shard.  Where they do not (one group
+spans the batch, as at the SMOKE sizes) the layer's input is first
+replicated over the data axes and every data rank routes all groups, as
+the one-device layer does.
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import perfflags
+from ..parallel import sharding as shd
 from .config import ModelConfig
 from .layers import Init, Params, dense_init, pdtype_of
 
@@ -66,6 +76,18 @@ def route(cfg: ModelConfig, p: Params, x):
     (G, Sg, K), each (token, k)'s queue position and whether it is kept
     (position < capacity), and the one-hot ``dispatch`` (G, Sg, E, cap)
     and gate-weighted ``combine`` tensors in the activation dtype."""
+    return _route(cfg, _router(p, x.dtype), x)
+
+
+def _router(p: Params, dt):
+    """The router weight the logits take: the activation-dtype cast in f32
+    (H5; BASELINE: the f32 router)."""
+    if perfflags.BASELINE:
+        return p["router"].float()
+    return p.cast("router", dt).float()
+
+
+def _route(cfg: ModelConfig, router, x):
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     sg, G, cap = _groups(cfg, B * S)
@@ -73,10 +95,7 @@ def route(cfg: ModelConfig, p: Params, x):
     xf = x.reshape(G, sg, D)
     # router logits: an f32 sum of the activation-dtype products (H5;
     # BASELINE: of the f32 activations and router)
-    if perfflags.BASELINE:
-        logits = xf.float() @ p["router"].float()
-    else:
-        logits = xf.float() @ p.cast("router", dt).float()
+    logits = xf.float() @ router
     probs = torch.softmax(logits, dim=-1)                      # (G, Sg, E)
     # lax.top_k: descending, ties to the lower index (a stable sort)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -101,6 +120,8 @@ def route(cfg: ModelConfig, p: Params, x):
 
 def apply_moe(cfg: ModelConfig, p: Params, x):
     """x (B, S, D) -> (out (B, S, D), aux_loss scalar f32)."""
+    if shd.is_sharded(x):
+        return _apply_moe_sharded(cfg, p, x)
     B, S, D = x.shape
     E = cfg.n_experts
     N = B * S
@@ -127,3 +148,68 @@ def apply_moe(cfg: ModelConfig, p: Params, x):
     density_proxy = r["probs"].mean((0, 1))
     aux = (density * density_proxy).sum() * E
     return out.reshape(B, S, D), aux.float()
+
+
+def _experts(cfg: ModelConfig, router, w_gate, w_up, w_down, x, e0: int,
+             count: float):
+    """The routed experts ``e0 .. e0 + len(w_gate)`` of one device's
+    tokens ``x`` (B, S, D): (their share of the output (B, S, D), and
+    ``count`` times the summed top-1 one-hot (E,) and router
+    probabilities (E,) over the tokens, for the auxiliary loss)."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    dt = x.dtype
+    r = _route(cfg, router, x)
+    e1 = e0 + w_gate.shape[0]
+    xf = x.reshape(r["dispatch"].shape[0], -1, D)
+    expert_in = torch.einsum("gsd,gsec->egcd", xf, r["dispatch"][:, :, e0:e1])
+    gate = F.silu(torch.einsum("egcd,edf->egcf", expert_in, w_gate.to(dt)))
+    up = torch.einsum("egcd,edf->egcf", expert_in, w_up.to(dt))
+    expert_out = torch.einsum("egcf,efd->egcd", gate * up, w_down.to(dt))
+    out = torch.einsum("egcd,gsec->gsd", expert_out,
+                       r["combine"][:, :, e0:e1])
+    top1 = _one_hot(r["expert_idx"][..., 0], E, torch.float32).sum((0, 1))
+    return out.reshape(B, S, D), top1 * count, r["probs"].sum((0, 1)) * count
+
+
+def _apply_moe_sharded(cfg: ModelConfig, p: Params, x):
+    """``apply_moe`` of a DTensor ``x`` on its mesh (module docstring)."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    N = B * S
+    dt = x.dtype
+    r = shd.current_rules()
+    sizes = shd.mesh_sizes(x.device_mesh)
+    dp = 1
+    for a in r.dp:
+        dp *= sizes[a]
+    sg, G, _ = _groups(cfg, N)
+    # whole groups on each data shard: route them there; else every data
+    # rank routes the whole batch (the input replicated over dp)
+    batch = r.dp if G % dp == 0 and B % dp == 0 and (B // dp) * S % sg == 0 \
+        else None
+    tp = r.tp if r.tp and E % sizes[r.tp] == 0 else None
+    e_local = E // (sizes[tp] if tp else 1)
+    e0 = x.device_mesh.get_local_rank(tp) * e_local if tp else 0
+    w = shd.P(tp, None, None)
+    # the output is a partial sum over the expert shards; the routing
+    # statistics over the data shards, and over the expert shards with
+    # all but the first counting 0 (every expert shard routes the same
+    # tokens, so each statistic and its gradient are taken once)
+    stats = tuple(batch or ()) + ((tp,) if tp else ())
+    sums = {0: (tp,) if tp else (), 1: stats, 2: stats}
+    count = 1.0 if e0 == 0 else 0.0
+    out, top1, psum = shd.on_shards(
+        lambda rw, wg, wu, wd, xx: _experts(cfg, rw, wg, wu, wd, xx, e0,
+                                            count),
+        (_router(p, dt), p.cast("w_gate", dt), p.cast("w_up", dt),
+         p.cast("w_down", dt), x),
+        [shd.P(), w, w, w, shd.P(batch, None, None)],
+        [shd.P(batch, None, None), shd.P(), shd.P()], partial=sums)
+    if cfg.n_shared_experts:
+        sp = p["shared"]
+        g = F.silu(x @ sp.cast("w_gate", dt))
+        out = out + (g * (x @ sp.cast("w_up", dt))) @ sp.cast("w_down", dt)
+    # load-balancing auxiliary loss (Switch/GShard form) over all tokens
+    aux = ((top1 / N) * (psum / N)).sum() * E
+    return out, aux.float()

@@ -13,7 +13,8 @@ Prefill is chunk-parallel: within a chunk every decay exponent is a
 difference cum_{t-1} - cum_s clamped at <= 0, so every exp() is <= 1;
 across chunks a loop carries S, each chunk's body recomputed in the
 backward pass (perf iteration H2; ``REPRO_PERF_BASELINE=1`` turns it
-off).  Decode is the O(1) recurrence.
+off).  Decode is the O(1) recurrence.  On a mesh each chunk runs on each
+device's batch and head shards.
 """
 from __future__ import annotations
 
@@ -81,16 +82,20 @@ def _headnorm(x, scale):
     var = (xf * xf).mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + 1e-6)
     B, S, H, hd = x.shape
-    return (out.reshape(B, S, H * hd) * scale.float()).to(x.dtype)
+    # on a mesh the heads' gradient must come back in their layout
+    return (shd.hold(out.reshape(B, S, H * hd)) * scale.float()).to(x.dtype)
 
 
 def _projections(cfg, p: Params, x, xs):
     """r, k, v (B, S, D) and the gate g, and log w (B, S, D) f32."""
     dt = x.dtype
-    # D over the model axis before the head split
-    r = shd.act(_mix(p, "mix_r", x, xs) @ p.cast("wr", dt), "logits")
-    k = shd.act(_mix(p, "mix_k", x, xs) @ p.cast("wk", dt), "logits")
-    v = shd.act(_mix(p, "mix_v", x, xs) @ p.cast("wv", dt), "logits")
+    # D over the model axis before the head split (H8; BASELINE: left to
+    # the compiler, as in the JAX package)
+    c = (lambda t: t) if perfflags.BASELINE else \
+        (lambda t: shd.act(t, "logits"))
+    r = c(_mix(p, "mix_r", x, xs) @ p.cast("wr", dt))
+    k = c(_mix(p, "mix_k", x, xs) @ p.cast("wk", dt))
+    v = c(_mix(p, "mix_v", x, xs) @ p.cast("wv", dt))
     g = _mix(p, "mix_g", x, xs) @ p.cast("wg", dt)
     return r, k, v, g, _decay(cfg, p, _mix(p, "mix_w", x, xs))
 
@@ -110,10 +115,10 @@ def time_mix(cfg: ModelConfig, p: Params, x, chunk=None, state=None,
     dt = x.dtype
 
     r, k, v, g, logw = _projections(cfg, p, x, _shift(x, last_x))
-    rf = r.float().reshape(B, S, H, hd)
-    kf = k.float().reshape(B, S, H, hd)
-    vf = v.float().reshape(B, S, H, hd)
-    lw = logw.reshape(B, S, H, hd)
+    rf = shd.unflatten(r.float(), 2, (H, hd))
+    kf = shd.unflatten(k.float(), 2, (H, hd))
+    vf = shd.unflatten(v.float(), 2, (H, hd))
+    lw = shd.unflatten(logw, 2, (H, hd))
     u = p["u"].float().reshape(H, hd)
 
     if state is None:
@@ -122,7 +127,7 @@ def time_mix(cfg: ModelConfig, p: Params, x, chunk=None, state=None,
     tmask = torch.ones((chunk, chunk), dtype=torch.bool,
                        device=x.device).tril(-1)[None, :, :, None, None]
 
-    def body(S_in, rc, kc, vc, lwc):
+    def chunk_body(S_in, rc, kc, vc, lwc, u, tmask):
         cum = torch.cumsum(lwc, dim=1)               # (B, L, H, dk)
         cum_prev = cum - lwc                         # cum_{t-1}
         # cross-chunk: r_t decayed to chunk start @ S_in
@@ -131,7 +136,7 @@ def time_mix(cfg: ModelConfig, p: Params, x, chunk=None, state=None,
         # intra-chunk pairwise with safe exponents (<= 0)
         ediff = cum_prev[:, :, None] - cum[:, None, :]      # (B, t, s, H, dk)
         e = torch.where(tmask, torch.exp(torch.clamp(ediff, max=0.0)),
-                        torch.zeros((), device=x.device))
+                        torch.zeros((), device=rc.device))
         a = torch.einsum("bthd,bshd,btshd->bths", rc, kc, e)
         out_intra = torch.einsum("bths,bshv->bthv", a, vc)
         # current-token bonus
@@ -142,6 +147,22 @@ def time_mix(cfg: ModelConfig, p: Params, x, chunk=None, state=None,
         S_out = S_in * torch.exp(cum[:, -1])[..., None] + torch.einsum(
             "bshd,bshv->bhdv", k_dec, vc)
         return S_out, out_cross + out_intra + out_diag
+
+    heads = shd.spec("heads", rf.shape)
+    if heads is not None and shd.is_sharded(rf):
+        heads = shd.fit_spec(heads, rf.shape,
+                             shd.mesh_sizes(rf.device_mesh))
+        carry = shd.P(heads[0], heads[2], None, None)
+        in_specs = [carry, heads, heads, heads, heads, shd.P(heads[2], None),
+                    None]
+        out_specs = [carry, heads]
+    else:
+        in_specs, out_specs = [None] * 7, [None] * 2
+
+    def body(S_in, rc, kc, vc, lwc):
+        # each chunk on each device's batch and head shards
+        return shd.on_shards(chunk_body, (S_in, rc, kc, vc, lwc, u, tmask),
+                             in_specs, out_specs)
 
     body = perfflags.checkpoint_if_optimized(body)
     outs = []
@@ -163,18 +184,37 @@ def time_mix_decode(cfg: ModelConfig, p: Params, x, state, last_x):
     hd = cfg.rwkv_head_dim
     dt = x.dtype
     r, k, v, g, logw = _projections(cfg, p, x, last_x)
-    rf = r.float().reshape(B, H, hd)
-    kf = k.float().reshape(B, H, hd)
-    vf = v.float().reshape(B, H, hd)
-    w = torch.exp(logw).reshape(B, H, hd)
-    u = p["u"].float().reshape(H, hd)
-    wkv = state + (kf * u[None])[..., None] * vf[:, :, None, :]
-    out = torch.einsum("bhd,bhdv->bhv", rf, wkv)       # (B, H, dv)
-    new_state = state * w[..., None] + kf[..., None] * vf[:, :, None, :]
+    in_specs, out_specs = [None] * 6, [None] * 2
+    if shd.is_sharded(state):
+        # each device's batch and head shards (the heads' channels of D)
+        st = shd.fit_spec(shd.P(shd.current_rules().dp,
+                                shd.current_rules().tp, None, None),
+                          state.shape,
+                          shd.mesh_sizes(state.device_mesh))
+        flat = shd.P(st[0], None, st[1])
+        in_specs = [flat] * 4 + [shd.P(st[1]), st]
+        out_specs = [shd.P(st[0], st[1], None), st]
+    out, new_state = shd.on_shards(_wkv_step, (r, k, v, logw, p["u"], state),
+                                   in_specs, out_specs)
     out = out.reshape(B, 1, D).to(dt)
     out = _headnorm(out.reshape(B, 1, H, hd), p["ln_scale"])
     out = out * F.silu(g)
     return out @ p.cast("wo", dt), new_state, x
+
+
+def _wkv_step(r, k, v, logw, u, state):
+    """One token's WKV read-out (B, H, dv) and new state (B, H, dk, dv)
+    from r, k, v, log w (B, 1, H * hd) and the state."""
+    B, H, hd = state.shape[0], state.shape[1], state.shape[2]
+    rf = r.float().reshape(B, H, hd)
+    kf = k.float().reshape(B, H, hd)
+    vf = v.float().reshape(B, H, hd)
+    w = torch.exp(logw).reshape(B, H, hd)
+    u = u.float().reshape(H, hd)
+    wkv = state + (kf * u[None])[..., None] * vf[:, :, None, :]
+    out = torch.einsum("bhd,bhdv->bhv", rf, wkv)       # (B, H, dv)
+    new_state = state * w[..., None] + kf[..., None] * vf[:, :, None, :]
+    return out, new_state
 
 
 def channel_mix(cfg: ModelConfig, p: Params, x, last_x=None):

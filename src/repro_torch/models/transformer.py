@@ -29,6 +29,11 @@ last slot writes that slot again (the JAX package's
 ``train_loss`` recomputes each block (and each cross-entropy chunk) in
 the backward pass, as the JAX package's ``jax.checkpoint`` bodies do, so
 the saved activations are one (B, S, D) input per block.
+
+Sharded execution: with parameters, batch and cache as DTensors on a
+device mesh (``parallel.sharding.distribute_params``) the same code runs
+over the mesh; ``shd.act`` places the hidden states, logits and caches
+where the JAX package's ``shd.act`` sites constrain them.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from . import layers as L
 from . import mamba as M
 from . import moe as E
 from . import rwkv as R
+from ..parallel import sharding as shd
 from .config import ModelConfig
 from .layers import Init, Params
 
@@ -53,10 +59,14 @@ def _remat(fn, *args):
 def _ce_sum(cfg: ModelConfig, embed_params, x, labels):
     """Summed negative log-likelihood of ``labels`` under the f32 logits
     of ``x`` (B, chunk, D)."""
-    logits = L.unembed(cfg, embed_params, x)
+    logits = shd.act(L.unembed(cfg, embed_params, x), "logits")
     lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - lab).sum()
+    lab = torch.gather(logits, -1, labels[..., None].long())
+    if shd.is_sharded(lab):
+        # a gather over the vocab-sharded logits is a masked partial sum
+        # whose mask keeps the gather's (B, chunk, 1) shape
+        return (lse[..., None] - lab).sum()
+    return (lse - lab[..., 0]).sum()
 
 
 def chunked_ce_loss(cfg: ModelConfig, embed_params, x, labels, chunk=1024):
@@ -109,8 +119,15 @@ def _slot(pos, S):
 
 def _write(cache_t, pos, new):
     """cache_t (B, S, ...) [:, pos] = new (B, 1, ...), in place; a ``pos``
-    past the last slot writes the last slot."""
-    cache_t.index_copy_(1, _slot(pos, cache_t.shape[1]), new)
+    past the last slot writes the last slot.  A sharded cache takes the
+    write into each rank's shard (the batch and head shards of ``new``
+    are placed as the cache's)."""
+    slot = _slot(pos, cache_t.shape[1])
+    if shd.is_sharded(cache_t):
+        new = new.redistribute(cache_t.device_mesh, cache_t.placements)
+        cache_t.to_local().index_copy_(1, slot, new.to_local())
+        return
+    cache_t.index_copy_(1, slot, new)
 
 
 class _LM(nn.Module):
@@ -139,7 +156,7 @@ class _LM(nn.Module):
         if cfg.pos == "sinusoidal":
             x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                            x.device)[None]
-        return x
+        return shd.act(x, "hidden")
 
     def _head(self, x):
         x = L.apply_norm(self.cfg, self.ln_f, x)
@@ -195,9 +212,10 @@ class DecoderLM(_LM):
         h = L.apply_norm(cfg, bp["ln1"], x)
         q, k, v = L.project_qkv(cfg, bp["attn"], h, angles)
         x = x + L.attn_out(cfg, bp["attn"], L.causal_attention(cfg, q, k, v))
+        x = shd.act(x, "hidden")
         h = L.apply_norm(cfg, bp["ln2"], x)
         ff, aux = _ffn(cfg, bp, h)
-        return x + ff, aux, k, v
+        return shd.act(x + ff, "hidden"), aux, k, v
 
     def train_loss(self, batch):
         x = self._inputs_embed(batch)
@@ -217,7 +235,8 @@ class DecoderLM(_LM):
             ks.append(k)
             vs.append(v)
         logits = self._head(x[:, -1:])
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+        return logits, {"k": shd.act(torch.stack(ks), "cache"),
+                        "v": shd.act(torch.stack(vs), "cache"),
                         "length": _length(x.shape[1], x.device)}
 
     def init_cache(self, batch_size, max_len, dtype=None):
@@ -226,8 +245,10 @@ class DecoderLM(_LM):
         hkv = max(cfg.decode_head_pad, cfg.n_kv_heads)
         shape = (cfg.n_layers, batch_size, max_len, hkv, cfg.head_dim)
         dev = self.device
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
+        return {"k": shd.act(torch.zeros(shape, dtype=dt, device=dev),
+                             "cache"),
+                "v": shd.act(torch.zeros(shape, dtype=dt, device=dev),
+                             "cache"),
                 "length": _length(0, dev)}
 
     def decode_step(self, batch, cache):
@@ -254,7 +275,9 @@ class DecoderLM(_LM):
                 att = att[:, :, :cfg.n_kv_heads]
             x = x + L.attn_out(cfg, bp["attn"], att.to(x.dtype))
             h = L.apply_norm(cfg, bp["ln2"], x)
-            x = x + _ffn(cfg, bp, h)[0]
+            x = shd.act(x + _ffn(cfg, bp, h)[0], "hidden")
+        cache["k"] = shd.act(cache["k"], "cache")
+        cache["v"] = shd.act(cache["v"], "cache")
         cache["length"] = pos + 1
         return self._head(x), cache
 
@@ -310,9 +333,10 @@ class HybridLM(_LM):
                 x = x + out
                 convs.append(st["conv"])
                 ssms.append(st["ssm"])
+            x = shd.act(x, "hidden")
             h = L.apply_norm(cfg, sp["ln2"], x)
             ff, a = _ffn(cfg, sp, h)
-            x = x + ff
+            x = shd.act(x + ff, "hidden")
             aux = _add_aux(aux, a)
         return x, aux, k, v, torch.stack(convs), torch.stack(ssms)
 
@@ -333,14 +357,17 @@ class HybridLM(_LM):
         kv_shape = (self.n_groups, batch_size, max_len, cfg.n_kv_heads,
                     cfg.head_dim)
         return {
-            "k": torch.zeros(kv_shape, dtype=dt, device=dev),
-            "v": torch.zeros(kv_shape, dtype=dt, device=dev),
-            "conv": torch.zeros((self.n_groups, self.group - 1, batch_size,
-                                 cfg.mamba_d_conv - 1, di), dtype=dt,
-                                device=dev),
-            "ssm": torch.zeros((self.n_groups, self.group - 1, batch_size, di,
-                                cfg.mamba_d_state), dtype=torch.float32,
-                               device=dev),
+            "k": shd.act(torch.zeros(kv_shape, dtype=dt, device=dev),
+                         "cache"),
+            "v": shd.act(torch.zeros(kv_shape, dtype=dt, device=dev),
+                         "cache"),
+            "conv": shd.act(torch.zeros(
+                (self.n_groups, self.group - 1, batch_size,
+                 cfg.mamba_d_conv - 1, di), dtype=dt, device=dev), "hidden"),
+            "ssm": shd.act(torch.zeros(
+                (self.n_groups, self.group - 1, batch_size, di,
+                 cfg.mamba_d_state), dtype=torch.float32, device=dev),
+                "hidden"),
             "length": _length(0, dev),
         }
 
@@ -355,7 +382,8 @@ class HybridLM(_LM):
             convs.append(conv)
             ssms.append(ssm)
         logits = self._head(x[:, -1:])
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+        return logits, {"k": shd.act(torch.stack(ks), "cache"),
+                        "v": shd.act(torch.stack(vs), "cache"),
                         "conv": torch.stack(convs), "ssm": torch.stack(ssms),
                         "length": _length(x.shape[1], x.device)}
 
@@ -383,7 +411,7 @@ class HybridLM(_LM):
                     st["ssm"].copy_(st2["ssm"])
                     x = x + out
                 h = L.apply_norm(cfg, sp["ln2"], x)
-                x = x + _ffn(cfg, sp, h)[0]
+                x = shd.act(x + _ffn(cfg, sp, h)[0], "hidden")
         cache["length"] = pos + 1
         return self._head(x), cache
 
@@ -410,7 +438,7 @@ class RWKVLM(_LM):
         x = x + tm
         h2 = L.apply_norm(cfg, bp["ln2"], x)
         cm, lcx = R.channel_mix(cfg, bp["rwkv"], h2)
-        return x + cm, s_fin, lx, lcx
+        return shd.act(x + cm, "hidden"), s_fin, lx, lcx
 
     def train_loss(self, batch):
         x = self._inputs_embed(batch)
@@ -427,8 +455,9 @@ class RWKVLM(_LM):
         dev = self.device
         x_shape = (Lc, batch_size, 1, cfg.d_model)
         return {
-            "wkv": torch.zeros((Lc, batch_size, H, hd, hd),
-                               dtype=torch.float32, device=dev),
+            "wkv": shd.act(torch.zeros((Lc, batch_size, H, hd, hd),
+                                       dtype=torch.float32, device=dev),
+                           "state"),
             "tm_x": torch.zeros(x_shape, dtype=dt, device=dev),
             "cm_x": torch.zeros(x_shape, dtype=dt, device=dev),
             "length": _length(0, dev),
@@ -499,7 +528,7 @@ class EncDecLM(_LM):
         att = L.causal_attention(cfg, q, k, v, causal=False)
         x = x + L.attn_out(cfg, bp["attn"], att)
         h = L.apply_norm(cfg, bp["ln2"], x)
-        return x + L.apply_mlp(cfg, bp["mlp"], h)
+        return shd.act(x + L.apply_mlp(cfg, bp["mlp"], h), "hidden")
 
     def encode(self, frames, remat=False):
         """The encoder's output; ``remat`` recomputes each block in the
@@ -508,6 +537,7 @@ class EncDecLM(_LM):
         x = frames.to(L.dtype_of(cfg))
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                        x.device)[None]
+        x = shd.act(x, "hidden")
         for bp in self.enc_blocks:
             x = _remat(self._enc_block, bp, x) if remat \
                 else self._enc_block(bp, x)
@@ -528,7 +558,8 @@ class EncDecLM(_LM):
         att = L.causal_attention(cfg, q, ek, ev, causal=False)
         x = x + L.attn_out(cfg, bp["cross_attn"], att)
         h = L.apply_norm(cfg, bp["ln2"], x)
-        return x + L.apply_mlp(cfg, bp["mlp"], h), k, v, ek, ev
+        return shd.act(x + L.apply_mlp(cfg, bp["mlp"], h), "hidden"), \
+            k, v, ek, ev
 
     def train_loss(self, batch):
         cfg = self.cfg
@@ -543,11 +574,11 @@ class EncDecLM(_LM):
     def _cross_kv(self, bp, enc_out):
         """The encoder output's cross-attention K/V (no bias)."""
         cfg = self.cfg
-        B, Se, _ = enc_out.shape
         ca = bp["cross_attn"]
-        shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
-        return (enc_out @ ca.cast("wk", enc_out.dtype)).reshape(shape), \
-            (enc_out @ ca.cast("wv", enc_out.dtype)).reshape(shape)
+        heads = (cfg.n_kv_heads, cfg.head_dim)
+        return shd.unflatten(enc_out @ ca.cast("wk", enc_out.dtype), 2,
+                             heads), \
+            shd.unflatten(enc_out @ ca.cast("wv", enc_out.dtype), 2, heads)
 
     def init_cache(self, batch_size, max_len, enc_len, dtype=None):
         cfg = self.cfg
@@ -555,8 +586,9 @@ class EncDecLM(_LM):
         dev = self.device
 
         def mk(s):
-            return torch.zeros((cfg.n_layers, batch_size, s, cfg.n_kv_heads,
-                                cfg.head_dim), dtype=dt, device=dev)
+            return shd.act(torch.zeros((cfg.n_layers, batch_size, s,
+                                        cfg.n_kv_heads, cfg.head_dim),
+                                       dtype=dt, device=dev), "cache")
 
         return {"k": mk(max_len), "v": mk(max_len), "ek": mk(enc_len),
                 "ev": mk(enc_len), "length": _length(0, dev)}

@@ -20,6 +20,11 @@ included.  It adds up, into an ``OpCost`` with ``HloCost``'s fields
     twice its window (the output), a scatter, ``index_copy_`` or
     ``index_put_`` twice its update; ``copy_`` / ``fill_`` / ``zero_`` do
     not read their destination;
+  * copy_flops -- the part of ``flops`` that ``clone`` takes: the copies
+    eager makes where a reshape cannot be a view (``matmul`` / ``einsum``
+    folding a strided operand into ``bmm``'s batch), ``contiguous`` and
+    ``clone`` (one layout of the same work: a shard holding one KV head
+    folds without the copy its whole tensor needs);
   * nondot_flops / flops_adjusted -- the structured non-dot ops re-priced
     with the JAX package's ``NONDOT_FLOP_WEIGHTS`` (same keys, same
     weights): gathers and scatters on the elements they move, a gather
@@ -27,7 +32,9 @@ included.  It adds up, into an ``OpCost`` with ``HloCost``'s fields
     dynamic update slice it is, reductions, windowed passes (cumsum) and
     sorts on their input;
   * collective_bytes / coll_breakdown -- the operand bytes of the
-    ``_c10d_functional`` / ``c10d`` collectives (0 on one card);
+    ``_c10d_functional`` / ``c10d`` collectives and DTensor's
+    ``_dtensor.shard_dim_alltoall`` (0 on one card), by kind, and by kind
+    and process group (``coll_groups``: a mesh axis's group name);
   * loop_info -- empty: eager runs every iteration of a loop, so every
     op is already counted as often as it runs and there is no trip count
     to recover;
@@ -39,14 +46,24 @@ included.  It adds up, into an ``OpCost`` with ``HloCost``'s fields
     (a gather: its window) and wrote into it in place (a scatter: its
     update), for ``roofline.workload_bytes``: what the step must move
     whatever its ops, unlike ``eager_bytes``.
+
+Sharded steps (DTensor operands on a device mesh): the mode does not
+count an op on DTensors (it returns ``NotImplemented``, and DTensor's own
+dispatch runs); it counts what that dispatch runs on this rank -- the
+local shards' ops and the collectives of every redistribution -- with
+their local sizes, so every figure is per device.  The ops DTensor's
+sharding propagation runs on fake copies of the operands, to learn an
+output's shape, are bookkeeping and are not counted.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
 from typing import Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -106,9 +123,13 @@ _COLLECTIVES = {
     "reduce_scatter_": "reduce-scatter",
     "_reduce_scatter_base_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
-    "alltoall_base_": "all-to-all",
+    "alltoall_base_": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
 }
-_COLLECTIVE_NS = ("_c10d_functional", "c10d")
+_COLLECTIVE_NS = ("_c10d_functional", "c10d", "_dtensor")
+# DTensor's sharding propagation (it runs each new op once on fake copies
+# of its operands, inside any active mode)
+_PROPAGATION = "_sharding_prop.py"
 
 _UPDATE_ARGS = ("src", "source", "values")
 
@@ -119,10 +140,14 @@ class OpCost:
     eager_bytes: float = 0.0
     collective_bytes: float = 0.0
     coll_breakdown: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # (kind, process group name) -> bytes
+    coll_groups: Dict[Tuple[str, str], float] = dataclasses.field(
+        default_factory=dict)
     loop_info: List[Tuple[str, int]] = dataclasses.field(default_factory=list)
     nondot_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     flops_adjusted: float = 0.0
     dot_flops: float = 0.0
+    copy_flops: float = 0.0
     op_counts: Dict[str, int] = dataclasses.field(
         default_factory=collections.Counter)
     peak_bytes: int = 0
@@ -176,6 +201,17 @@ def _nondot_key(name: str, overload: str, named):
     return None
 
 
+def _in_propagation(depth: int = 48) -> bool:
+    """Whether DTensor's sharding propagation is on the Python stack."""
+    f = sys._getframe(2)
+    while f is not None and depth:
+        if f.f_code.co_filename.endswith(_PROPAGATION):
+            return True
+        f = f.f_back
+        depth -= 1
+    return False
+
+
 def _update(named: dict):
     for key in _UPDATE_ARGS:
         val = named.get(key)
@@ -199,6 +235,7 @@ class CostMode(TorchDispatchMode):
         self.cost = OpCost()
         self._live: Dict[int, tuple] = {}   # key -> (weak ref, bytes)
         self._live_bytes = 0
+        self._sharded = False               # a DTensor op was seen
 
     # -- memory ---------------------------------------------------------
 
@@ -225,9 +262,13 @@ class CostMode(TorchDispatchMode):
     # -- dispatch -------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            self._sharded = True
+            return NotImplemented          # counted as the shards' ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self._charge(func, args, kwargs, out)
+        if not (self._sharded and _in_propagation()):
+            self._charge(func, args, kwargs, out)
         return out
 
     def _charge(self, func, args, kwargs, out):
@@ -257,6 +298,9 @@ class CostMode(TorchDispatchMode):
                 b = float(sum(_nbytes(t) for t in ins))
                 c.collective_bytes += b
                 c.coll_breakdown[kind] = c.coll_breakdown.get(kind, 0.0) + b
+                key = (kind, str(_named_args(func, args, kwargs)
+                                 .get("group_name", "")))
+                c.coll_groups[key] = c.coll_groups.get(key, 0.0) + b
             return
         if func.is_view or name in _FREE:
             return
@@ -271,6 +315,8 @@ class CostMode(TorchDispatchMode):
             c.dot_flops += f
         else:
             c.flops += out_elems
+            if name == "clone":
+                c.copy_flops += out_elems
 
         memo = {}
 

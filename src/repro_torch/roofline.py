@@ -5,8 +5,12 @@ Three terms per (arch, shape, mesh), in seconds:
 
     compute    = flops_per_device / PEAK_FLOPS   (989 TFLOP/s bf16 dense)
     memory     = bytes_per_device / HBM_BW       (3.35 TB/s HBM3)
-    collective = collective_bytes_per_device / LINK_BW   (450 GB/s NVLink,
-                                                          one direction)
+    collective = sum over mesh axes of the axis's collective bytes per
+                 device / the bandwidth of the link the axis crosses:
+                 NVLink (450 GB/s one direction) for an axis whose ranks
+                 lie in one node of 8 cards, else the node's network
+                 (400 Gb/s NDR InfiniBand per card: 50 GB/s); without a
+                 split by axis, collective bytes / LINK_BW
 
 ``bytes_per_device`` keeps the JAX package's name but holds the eager
 bytes (``OpCost.eager_bytes``: every op's inputs and outputs), a figure
@@ -38,6 +42,21 @@ from .opcost import OpCost, storage_key
 PEAK_FLOPS = 989e12      # bf16 dense per card
 HBM_BW = 3.35e12         # bytes/s per card
 LINK_BW = 450e9          # bytes/s per card, NVLink one direction
+NET_BW = 50e9            # bytes/s per card, 400 Gb/s NDR InfiniBand
+NODE_CARDS = 8           # cards an NVLink switch joins (HGX H100)
+
+
+def axis_links(mesh) -> Dict[str, tuple]:
+    """Mesh axis -> (link name, bytes/s) on H100 nodes of ``NODE_CARDS``
+    cards, ranks laid out row-major over the mesh: an axis stays in one
+    node when its stride times its size is at most ``NODE_CARDS``."""
+    out = {}
+    stride = 1
+    for name, size in reversed(list(zip(mesh.axis_names, mesh.axis_sizes))):
+        inside = stride * size <= NODE_CARDS
+        out[name] = ("nvlink", LINK_BW) if inside else ("network", NET_BW)
+        stride *= size
+    return out
 
 
 @dataclasses.dataclass
@@ -57,6 +76,9 @@ class Roofline:
     flops_adjusted_per_device: float = 0.0
     nondot_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     workload_bytes_per_device: float = 0.0
+    # mesh axis -> collective bytes per device, and -> (link, bytes/s)
+    coll_by_axis: Dict[str, float] = dataclasses.field(default_factory=dict)
+    links: Dict[str, tuple] = dataclasses.field(default_factory=dict)
 
     @property
     def t_compute(self):
@@ -77,6 +99,9 @@ class Roofline:
 
     @property
     def t_collective(self):
+        if self.coll_by_axis:
+            return sum(b / self.links[a][1]
+                       for a, b in self.coll_by_axis.items())
         return self.coll_bytes_per_device / LINK_BW
 
     @property
@@ -135,6 +160,11 @@ class Roofline:
             "workload_bytes_per_device": self.workload_bytes_per_device,
             "t_memory_workload_s": self.t_memory_workload,
             "workload_bottleneck": self.workload_bottleneck,
+            **({"coll_bytes_per_device": self.coll_bytes_per_device,
+                "coll_by_axis": self.coll_by_axis,
+                "axis_links": {a: {"link": n, "bytes_per_s": bw}
+                               for a, (n, bw) in self.links.items()}}
+               if self.links else {}),
         }
 
 
@@ -200,11 +230,26 @@ def model_flops(cfg, cell) -> float:
     return 2.0 * n_active * cell.global_batch
 
 
-def analyze(cost: OpCost, memory: dict, raw_flops: float, arch, shape,
-            mesh_name, n_chips, cfg, cell, workload: float = 0.0) -> Roofline:
+def coll_by_axis(cost: OpCost, group_axes: Dict[str, str]) -> Dict[str, float]:
+    """Collective bytes per mesh axis: ``group_axes`` maps a process
+    group's name to its axis (a group of several axes: their names
+    joined by "+")."""
+    out: Dict[str, float] = {}
+    for (_, group), b in cost.coll_groups.items():
+        axis = group_axes.get(group, group)
+        out[axis] = out.get(axis, 0.0) + b
+    return out
+
+
+def analyze(cost: OpCost, memory: dict, raw_flops, arch, shape,
+            mesh_name, n_chips, cfg, cell, workload: float = 0.0,
+            by_axis: Dict[str, float] = None,
+            links: Dict[str, tuple] = None) -> Roofline:
     """The Roofline of a traced step: ``cost`` from ``CostMode``,
     ``memory`` from ``memory_report``, ``raw_flops`` from
-    ``FlopCounterMode``, ``workload`` from ``workload_bytes``."""
+    ``FlopCounterMode`` (None: not counted), ``workload`` from
+    ``workload_bytes``; on a mesh, ``by_axis`` (``coll_by_axis``) and
+    ``links`` (``axis_links``)."""
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_name, n_chips=n_chips,
         flops_per_device=cost.flops, bytes_per_device=cost.eager_bytes,
@@ -212,9 +257,12 @@ def analyze(cost: OpCost, memory: dict, raw_flops: float, arch, shape,
         coll_breakdown={k: int(v) for k, v in cost.coll_breakdown.items()},
         model_flops=model_flops(cfg, cell),
         memory_report=memory,
-        raw_cost_analysis={"flops": float(raw_flops)},
+        raw_cost_analysis={"flops": None if raw_flops is None
+                           else float(raw_flops)},
         loop_info=cost.loop_info[:32],
         flops_adjusted_per_device=cost.flops_adjusted,
         nondot_flops={k: float(v) for k, v in cost.nondot_flops.items()},
         workload_bytes_per_device=float(workload),
+        coll_by_axis=dict(by_axis or {}),
+        links=dict(links or {}),
     )

@@ -19,6 +19,13 @@ leaves as the paper's eb-quantized int32 codes.  Writes go to a tmp dir
 A leaf numpy cannot hold (bf16) raises the reference's ``TypeError``
 ("non-numeric checkpoint leaf ..."): the reference cannot save bf16
 leaves either, and the port keeps its format.
+
+Sharded leaves (DTensors on a device mesh) are gathered before ``save``
+(``launch.train.save_checkpoint``: every rank gathers, rank 0 writes
+the same bytes as a one-device save of the same values, the others wait
+at a barrier); ``save`` refuses a DTensor leaf.  ``restore(...,
+shardings=)`` places each leaf on a mesh, any mesh: a checkpoint saved
+on one layout restores onto another (the elastic / mesh-reshape path).
 """
 from __future__ import annotations
 
@@ -60,6 +67,9 @@ def _key(path) -> str:
 def _host(key: str, leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if hasattr(leaf, "full_tensor"):          # a DTensor
+            raise TypeError(f"sharded checkpoint leaf {key}: gather it "
+                            "first (launch.train.save_checkpoint)")
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"non-numeric checkpoint leaf {key}: bfloat16")
         leaf = leaf.cpu().numpy()
@@ -173,11 +183,13 @@ def _rebuild(template, path, fetch):
 
 
 def restore(directory: str, template_trees: Dict[str, Any],
+            shardings: Optional[Dict[str, Any]] = None,
             step: Optional[int] = None):
     """Restore into the structure of ``template_trees`` (leaves with a
-    ``shape``: tensors or arrays).  Returns (trees of host numpy arrays,
-    manifest).  The reference's ``shardings`` placement has no
-    counterpart on one device."""
+    ``shape``: tensors or arrays).  Returns (trees, manifest): host numpy
+    arrays, or, where ``shardings`` (trees of ``NamedSharding`` over
+    ``torch.distributed`` device meshes, matching the templates) gives a
+    leaf one, a DTensor with that spec holding this rank's slice."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -206,4 +218,21 @@ def restore(directory: str, template_trees: Dict[str, Any],
                 return arr
 
             out[tree_name] = _rebuild(template, (), fetch)
+    if shardings:
+        for tree_name, shd_tree in shardings.items():
+            out[tree_name] = _place(out[tree_name], shd_tree)
     return out, manifest
+
+
+def _place(tree, shardings):
+    """``tree``'s arrays placed by the matching ``shardings`` tree."""
+    if shardings is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings.get(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(t, s) for t, s in zip(tree, shardings))
+    from ..parallel.sharding import place
+
+    return place(torch.from_numpy(np.ascontiguousarray(tree)),
+                 shardings.spec, shardings.mesh)

@@ -10,6 +10,11 @@ reference's quantize-dequantize, bit for bit.  The blocks run over the
 reference's leaves: the slices of a stacked leaf (one a layer in the
 port) are quantized as one flat vector in layer order, so a block can
 straddle two layers as it does in the reference.
+
+On a mesh (DTensor gradients) a block can straddle two shards: each
+group's gradients and residuals are gathered to whole tensors
+(``full_tensor``), compressed as on one device -- the same bits -- and
+each rank keeps its shards of the results (nothing more is sent).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.convert import stacked_groups
+from ..parallel import sharding as shd
 
 BLOCK = 256
 
@@ -31,7 +37,8 @@ class GradCompressConfig:
 
 
 def init_residuals(params: dict) -> dict:
-    return {n: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
+    return {n: torch.zeros_like(p, dtype=torch.bfloat16) if shd.is_sharded(p)
+            else torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
             for n, p in params.items()}
 
 
@@ -64,6 +71,8 @@ def _residual(gin: torch.Tensor, codes) -> torch.Tensor:
 
 def compress_grads(grads: dict, residuals: dict, cfg: GradCompressConfig):
     """Returns (decompressed grads, new residuals, metrics)."""
+    if cfg.enabled and shd.is_sharded(*grads.values()):
+        return _compress_sharded(grads, residuals, cfg)
     if not cfg.enabled:
         dev = next(iter(grads.values())).device
         return grads, residuals, {
@@ -89,3 +98,19 @@ def compress_grads(grads: dict, residuals: dict, cfg: GradCompressConfig):
                 if res is not None else residuals[n]
             start += size
     return new_g, new_r, {"gc_error": err}
+
+
+def _compress_sharded(grads: dict, residuals: dict, cfg: GradCompressConfig):
+    """``compress_grads`` of DTensor gradients (module docstring): the
+    results placed as the residuals (the parameters' placements)."""
+    def full(tree):
+        return {n: t.full_tensor() if shd.is_sharded(t) else t
+                for n, t in tree.items()}
+
+    def placed(tree):
+        return {n: shd.place(t, shd.spec_of(residuals[n]),
+                             residuals[n].device_mesh)
+                for n, t in tree.items()}
+
+    new_g, new_r, metrics = compress_grads(full(grads), full(residuals), cfg)
+    return placed(new_g), placed(new_r), metrics

@@ -4,9 +4,14 @@ has the JAX package's keys (``trace_s`` in place of ``lower_s`` /
 fake-tensor trace of a SMOKE step counts what the same step on real CPU
 tensors counts (flops, eager and workload bytes, every op, the peak
 allocation), ``resident_bytes`` covers the arguments, the CLI runs a
-full-width cell in-process, and the sharded meshes are refused (ROADMAP
-Queue 1 item 13d)."""
+full-width cell in-process, and the sharded meshes ``single`` (16, 16)
+and ``multi`` (2, 16, 16) trace the reference's tiny-mesh cell
+(qwen1.5-0.5b ``decode_32k``, ``tests/test_roofline_dryrun.py``) in a
+child process on a fake process group: per-device dot flops times the
+mesh size equal the card's (batch and heads divide both meshes) and
+collectives move bytes."""
 import contextlib
+import json
 
 import pytest
 import torch
@@ -108,15 +113,57 @@ def test_skipped_cell_is_a_skip(capsys):
     assert "[dryrun] 0 ok, 1 skip, 0 fail" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("mesh", ["single", "multi", "both"])
-def test_sharded_meshes_are_refused(mesh, capsys):
-    with pytest.raises(NotImplementedError, match="13d"):
-        D.main(["--arch", "qwen1_5_0_5b", "--mesh", mesh, "--device", "cpu"])
-    assert "[dryrun]" not in capsys.readouterr().out      # no cell ran
+@pytest.fixture(scope="module")
+def card_cost():
+    """The OpCost of qwen1.5-0.5b ``decode_32k`` on the card mesh."""
     mod = TC.get("qwen1_5_0_5b")
-    with pytest.raises(NotImplementedError, match="13d"):
-        D.lower_cell(mod, "decode_32k", make_production_mesh(), "single",
-                     "cpu")
+    with D.fake_tensors():
+        model = build_model(mod.CONFIG, device="cpu")
+        fn, _ = D.make_step(model, mod.CELLS["decode_32k"], "cpu")
+        cost, _, _ = D.trace(fn)
+    return cost
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi", "both"])
+def test_sharded_meshes(mesh, tmp_path, capsys, card_cost):
+    """``single`` and ``multi``: the tiny-mesh cell, traced in a child
+    process.  ``both``: a cell that is a skip on both meshes (its
+    argument handling; a traced cell is the other two cases)."""
+    out = str(tmp_path / "rows.json")
+    if mesh == "both":
+        assert D.main(["--arch", "yi_6b", "--shape", "long_500k", "--mesh",
+                       "both", "--device", "cpu", "--out", out]) == 0
+        assert "[dryrun] 0 ok, 2 skip, 0 fail" in capsys.readouterr().out
+        with open(out) as f:
+            assert [r["mesh"] for r in json.load(f)] == ["single", "multi"]
+        return
+    assert D.main(["--arch", "qwen1_5_0_5b", "--shape", "decode_32k",
+                   "--mesh", mesh, "--device", "cpu", "--out", out]) == 0
+    assert "[dryrun] 1 ok, 0 skip, 0 fail" in capsys.readouterr().out
+    with open(out) as f:
+        row, = json.load(f)
+    n = make_production_mesh(multi_pod=mesh == "multi").size
+    assert row["chips"] == n
+    # batch 128 and the 16 (KV) heads divide the data and model axes of
+    # both meshes: every dot is split n ways, none is repeated
+    total = row["dot_flops_per_device"] * n
+    assert abs(total - card_cost.dot_flops) <= 0.01 * card_cost.dot_flops, \
+        (total, card_cost.dot_flops)
+    # all flops but eager's layout copies: replication only adds (the
+    # rope angles, masks and cache-length ops every rank repeats: 0.9 %
+    # on single, 1.8 % on multi).  The card mesh's einsum copies each
+    # layer's f32 K and V cache into bmm's (B * H, D, S) layout (20 % of
+    # its flops); a shard with one KV head folds it without a copy.
+    net = (row["hlo_flops_raw"] - row["copy_flops_per_device"]) * n
+    card_net = card_cost.flops - card_cost.copy_flops
+    assert card_net <= net <= 1.03 * card_net, (net, card_net)
+    assert card_cost.copy_flops > 0.15 * card_cost.flops
+    assert row["coll_bytes_per_device"] > 0
+    assert sum(row["coll_by_axis"].values()) > 0
+    assert set(row["axis_links"]) == set(
+        make_production_mesh(multi_pod=mesh == "multi").axis_names)
+    assert row["raw_cost_analysis"]["flops"] is None
+    assert row["memory"]["resident_bytes"] > 0
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -4,7 +4,7 @@ a mesh, every activation kind's spec, the spec of every parameter of the
 ten published configurations (the reference's ``eval_shape`` of
 ``model.init`` beside the port's model built on fake tensors; a stacked
 leaf's spec loses its leading ``None`` in the port; ``P()`` stays),
-``_fit_spec`` and the cache and batch layouts.  Meshes are device-free
+``fit_spec`` and the cache and batch layouts.  Meshes are device-free
 on both sides (``jax.sharding.AbstractMesh``,
 ``repro_torch.launch.mesh.Mesh``)."""
 import os
@@ -170,7 +170,7 @@ def test_fit_spec_equal_reference(i):
                for a in ((p,) if isinstance(p, str) else p)):
             continue
         want = tuple(ref._fit_spec(PartitionSpec(*spec), shape, jm))
-        assert tuple(TD._fit_spec(TS.P(*spec), shape, tm)) == want
+        assert tuple(TS.fit_spec(TS.P(*spec), shape, tm.shape)) == want
 
 
 @pytest.mark.parametrize("arch,seq", [("yi_6b", False), ("qwen1_5_32b", False),

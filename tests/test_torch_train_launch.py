@@ -2,9 +2,10 @@
 checkpoints: resume equals an uninterrupted run, checkpoints cross
 between the two packages bitwise in both directions (the reference's
 on-disk format and stacked layout), both packages refuse a bf16 leaf
-with the same TypeError, ``--mesh`` beyond one device is refused (``1x1``
-trains as without it) and the entry points need CUDA unless given the
-CPU."""
+with the same TypeError, a ``--mesh`` of more devices than the process
+group's ranks raises ValueError (``1x1`` trains as without it; the
+sharded launch is ``tests/test_torch_sharded_launch.py``) and the entry
+points need CUDA unless given the CPU."""
 import json
 import os
 
@@ -186,12 +187,18 @@ def test_main_prints_the_train_lines(capsys):
     assert out[-1].endswith("0 straggler events")
 
 
-def test_mesh_is_refused(tmp_path):
-    """A mesh of more than one device needs sharded execution (ROADMAP
-    Queue 1 item 13d)."""
+def test_mesh_is_refused(tmp_path, monkeypatch):
+    """A mesh whose size is not the world size raises ValueError: without
+    a process group (not started by torch.distributed.run), and with one
+    of another size."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     for mesh in ("2x2", "2x1", "2x2x2"):
-        with pytest.raises(NotImplementedError, match="13d"):
+        with pytest.raises(ValueError, match="torch.distributed.run"):
             run(tmp_path, "--mesh", mesh)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    with pytest.raises(ValueError, match="torch.distributed.run"):
+        train.parse_mesh("2x4").device_mesh("cpu")
 
 
 def test_mesh_1x1_trains_as_without(tmp_path):
