@@ -183,6 +183,21 @@ Phases (any failure exits non-zero; nothing is caught):
               mesh's, and its flops less eager's layout copies between
               1 and 1.03 times the card mesh's (the card mesh alone
               copies each layer's f32 K / V cache for bmm)
+4m. tiles -- the compressor's tiles mesh (the tiled compressor's unit
+              chunks, eb-derivation and track-index groups dealt to the
+              cards, a worker thread and stream each; every phase above
+              runs on one card): (a) the tiled 64x512x512 run of phase 4d,
+              each codec, with the mesh [cuda:0] and then [cuda:0,
+              cuda:0] (two workers on one card): the bytes == phase 4d's,
+              one launch per chunk and stage (the counts set to 0 just
+              before the run and read just after; K5 once per worker,
+              window and owned shape), the units each worker ran, encode
+              seconds of both; with two workers the tiled decode ==
+              the monolithic decode, the bound and FC = 0, and a serial
+              compress_stream of the field == the tiled bytes; (b) with
+              several cards the same over every card, and compress and
+              compress_tiled on cuda:1 == cuda:0's bytes; with one card a
+              line says (b) did not run
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -1799,6 +1814,154 @@ def run_main(dev, tag, u, v, cfg, fns):
             "enc_counts": enc_counts, "dec_counts": dec_counts,
             "inputs": rec.inputs, "peak_above": (peak - held) / 2 ** 20,
             "enc_s": enc_s, "dec_s": dec_s}
+
+
+# ----------------------------------------------------------------------
+# phase 4m: the tiles mesh
+# ----------------------------------------------------------------------
+
+class TilesDevices:
+    """Replaces ``sharding.tiles_devices`` for the runs inside: the cards
+    of the tiles mesh become ``pick(the cards it lists)``."""
+
+    def __init__(self, pick):
+        self.pick = pick
+
+    def __enter__(self):
+        from repro_torch.parallel import sharding
+
+        self._mod, self._orig = sharding, sharding.tiles_devices
+        sharding.tiles_devices = lambda device: self.pick(self._orig(device))
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.tiles_devices = self._orig
+
+
+def entropy_launches(shape, grid, workers, cap=8):
+    """K5 launches of a device-codec tiled compress over ``workers``: each
+    worker codes its emission chunks' units one launch per window and
+    owned shape (core/tiling.py ``_emit_chunks``)."""
+    from repro_torch.core import tiling
+    from repro_torch.parallel import sharding
+
+    windows = {}
+    for s in tiling.plan(shape, grid):
+        windows.setdefault(s.wi, {}).setdefault(tiling._sig(s), []).append(s)
+    n = 0
+    for groups in windows.values():
+        chunks = [g[i:i + cap] for g in groups.values()
+                  for i in range(0, len(g), cap)]
+        for part in sharding.deal([len(c) for c in chunks], workers):
+            n += len({chunks[i][0].owned_shape for i in part})
+    return n
+
+
+def tiles_run(dev, tag, u, v, cfg, grid, cards, fns):
+    """compress_tiled over the tiles mesh ``cards``: a counted run, then a
+    second, timed one (host clock, synchronized)."""
+    import repro_torch as rt
+
+    T, H, W = u.shape
+    with TilesDevices(lambda visible: list(cards)), \
+            CallCount("repro_torch.core.quantize", "dual_quantize") as dq:
+        reset_counts(fns)
+        blob, stats = rt.compress_tiled(u, v, cfg, grid, device=dev)
+        counts = read_counts(fns)
+        counts["dual_quantize"] = dq.calls
+        check_encode_launches(tag, cfg.codec, stats, counts, (
+            tiled_groups((T, H, W), grid)[0],
+            entropy_launches((T, H, W), grid, len(cards))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob2, _ = rt.compress_tiled(u, v, cfg, grid, device=dev)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    assert blob2 == blob, f"{tag}: runs differ"
+    units = stats["chunks"]["units"]
+    assert all(len(n) == len(cards) and min(n) > 0 for n in units.values()), \
+        f"{tag}: a worker ran no units {units}"
+    return {"blob": blob, "stats": stats, "counts": counts, "enc_s": enc_s}
+
+
+def phase_tiles(dev, main, tiled_runs):
+    """The tiles mesh (module docstring, 4m): (a) the tiled 64x512x512 run
+    on [cuda:0] and on [cuda:0, cuda:0] (two workers, two streams on one
+    card), each codec; (b) with several cards, every card, and the
+    monolithic and tiled compress on cuda:1."""
+    import repro_torch as rt
+    from repro_torch.data import synthetic
+    from repro_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    fns = wrappers()
+    grid = rt.TileGrid(*SIZES["tile_grid"])
+    T, H, W = SIZES["tiled"][-1][0]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    card0 = sharding.tiles_devices(dev)[0]
+    meshes = {"[cuda:0]": [card0], "[cuda:0, cuda:0]": [card0, card0]}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes["every card"] = sharding.tiles_devices(card0)
+    for codec in ("host", "device"):
+        cfg = rt.CompressionConfig(codec=codec, **scf_meta(T, H, W))
+        want = tiled_runs[(T, H, W), codec]
+        mono = next(r for r in main if r["shape"] == (T, H, W)
+                    and r["codec"] == codec)
+        secs = {}
+        for name, cards in meshes.items():
+            tag = f"tiles {T}x{H}x{W} codec={codec} {name}"
+            run = tiles_run(dev, tag, u, v, cfg, grid, cards, fns)
+            assert run["blob"] == want["blob"], \
+                f"{tag}: bytes differ from phase 4d's"
+            secs[name] = run["enc_s"]
+            say(f"{tag}: bytes == phase 4d's ({len(run['blob'])} B); "
+                f"launches {json.dumps(run['counts'])} == the chunk counts "
+                f"{json.dumps({k: run['stats']['chunks'][k] for k in ('verify', 'emit')})}; "
+                f"units a worker {json.dumps(run['stats']['chunks']['units'])}; "
+                f"encode {run['enc_s']:.3f} s (second call, host clock; "
+                f"phase 4d {want['enc_s']:.3f} s) on {smi}")
+            if len(cards) == 1:
+                continue
+            ur, vr = rt.decompress(run["blob"], device=dev)
+            assert np.array_equal(ur, mono["dec"][0]) \
+                and np.array_equal(vr, mono["dec"][1]), \
+                f"{tag}: tiled decode differs from the monolithic decode"
+            check_guarantees(tag, u, v, ur, vr, run["stats"], dev)
+            with TilesDevices(lambda visible: list(cards)):
+                b_s, st_s = rt.compress_stream(
+                    frames(u, v), cfg, grid, value_range=value_range(u, v),
+                    device=dev)
+            assert b_s == want["blob"], f"{tag}: stream bytes differ"
+            say(f"{tag}: tiled decode == monolithic decode, bitwise; a "
+                f"serial compress_stream over the same mesh == the tiled "
+                f"bytes (units a worker "
+                f"{json.dumps(st_s['chunks']['units']['emit'])})")
+        base = secs["[cuda:0]"]
+        say(f"tiles {T}x{H}x{W} codec={codec}: encode s "
+            + ", ".join(f"{n} {x:.3f} ({x / base:.4f} x)"
+                        for n, x in secs.items()) + f" on {smi}")
+    if n_cards > 1:
+        card1 = torch.device("cuda", 1)
+        mono_b, _ = rt.compress(
+            u, v, rt.CompressionConfig(**scf_meta(T, H, W)), device=card1)
+        assert mono_b == next(r["blob"] for r in main if r["codec"] == "host"
+                              and r["shape"] == (T, H, W)), \
+            "compress on cuda:1 differs"
+        tiled_b, st1 = rt.compress_tiled(
+            u, v, rt.CompressionConfig(**scf_meta(T, H, W)), grid,
+            device=card1)
+        assert tiled_b == tiled_runs[(T, H, W), "host"]["blob"], \
+            "compress_tiled on cuda:1 differs"
+        assert st1["chunks"]["units"]["emit"][0] > 0
+        say(f"tiles (b): {n_cards} cards; compress and compress_tiled on "
+            f"cuda:1 (mesh cuda:1 first) == cuda:0's bytes; units a worker "
+            f"{json.dumps(st1['chunks']['units']['emit'])}")
+    else:
+        say("tiles (b): NOT RUN -- one card visible: the runs over several "
+            "cards and the compress on cuda:1 need a second card")
+    say(f"tiles: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------------------------------------------------
@@ -3501,19 +3664,23 @@ def main() -> int:
         f" CUDA {torch.version.cuda}")
     phase_build()
     phase_kernels(dev)
-    phase_parity(dev)
-    main_runs = phase_main(dev)
-    adaptive_runs = phase_adaptive(dev, main_runs)
-    phase_obs(dev, main_runs)
-    tiled_run, tiled_runs = phase_tiled(dev, main_runs, adaptive_runs)
-    stream_blob = phase_stream(dev, tiled_runs)
-    phase_recovery(dev, stream_blob, tiled_runs)
-    phase_query(dev, tiled_runs)
-    phase_autotune(dev, main_runs)
+    # the phases before 4m run the tiled path on one card, as before the
+    # tiles mesh, whatever the number of visible cards
+    with TilesDevices(lambda visible: visible[:1]):
+        phase_parity(dev)
+        main_runs = phase_main(dev)
+        adaptive_runs = phase_adaptive(dev, main_runs)
+        phase_obs(dev, main_runs)
+        tiled_run, tiled_runs = phase_tiled(dev, main_runs, adaptive_runs)
+        stream_blob = phase_stream(dev, tiled_runs)
+        phase_recovery(dev, stream_blob, tiled_runs)
+        phase_query(dev, tiled_runs)
+        phase_autotune(dev, main_runs)
     phase_serve(dev)
     phase_train(dev)
     phase_dryrun(dev)
     phase_shard(dev)
+    phase_tiles(dev, main_runs, tiled_runs)
     rows = phase_table(main_runs, tiled_run)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -121,10 +121,28 @@ def incidence_table(H: int, W: int, kind: str) -> np.ndarray:
     return out
 
 
-@lru_cache(maxsize=16)
-def device_tables(H: int, W: int, device: str) -> dict:
+def _card(device) -> str:
+    """``device`` as a cache key: ``cuda`` is the calling thread's current
+    card, named ``cuda:k``, so that a worker thread of another card
+    never gets this card's tables and ``cuda`` / ``cuda:0`` share one
+    copy."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def device_tables(H: int, W: int, device) -> dict:
     """The face and incidence tables as int64 tensors on ``device``
-    (uploaded once per (H, W, device))."""
+    (uploaded once per (H, W, card))."""
+    return _device_tables(H, W, _card(device))
+
+
+# sized for several cards' geometries (a tiled window has up to four
+# extension planes): an evicted table may still be read by another
+# stream of its card
+@lru_cache(maxsize=64)
+def _device_tables(H: int, W: int, device: str) -> dict:
     dev = torch.device(device)
 
     def up(a):
@@ -158,10 +176,14 @@ def face_walk_table(H: int, W: int):
     return records.astype(np.int32), start.astype(np.int32)
 
 
-@lru_cache(maxsize=16)
-def face_walk(H: int, W: int, device: str):
+def face_walk(H: int, W: int, device):
     """``face_walk_table`` as int32 tensors on ``device`` (uploaded once
-    per (H, W, device), beside ``device_tables``)."""
+    per (H, W, card), beside ``device_tables``)."""
+    return _face_walk(H, W, _card(device))
+
+
+@lru_cache(maxsize=64)
+def _face_walk(H: int, W: int, device: str):
     dev = torch.device(device)
     return tuple(torch.as_tensor(a, device=dev)
                  for a in face_walk_table(H, W))

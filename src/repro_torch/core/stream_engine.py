@@ -15,14 +15,16 @@ window.  The async engine overlaps three stages:
                        device work -- window derivation, the fixpoint,
                        the final encode, the device codec, and every
                        copy of a result to the host (core/tiling.py
-                       ``_unit_payloads``);
+                       ``_unit_payloads``), which with several cards it
+                       fans out to the tiles mesh's workers and awaits;
     writer thread   -- takes host-only unit payloads in emission order:
                        symbolize, pack, TiledWriter, track-index rows,
                        the journal.
 
-No kernel is launched and no device memory is touched off the caller's
-thread, so every launch and copy stays ordered on that thread's current
-stream.  Payloads leave the scheduler in the serial emission order and
+No kernel is launched and no device memory is touched on the ingest or
+writer thread: the compute thread's work (and its tiles workers', each
+on a stream of its own, synchronized before the results come back)
+is done before a payload reaches the writer.  Payloads leave the scheduler in the serial emission order and
 the writer queue is FIFO, so the bytes are the serial engine's (and
 compress_tiled's).
 

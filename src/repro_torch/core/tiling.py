@@ -32,6 +32,14 @@ unit has SL blocks, K2); a single unit (and every unit with
 changes a byte.  The planes stay host numpy, one (H, W) array a frame;
 each round uploads each chunk's stacked extension boxes once.
 
+The chunks, the window's eb-derivation groups and its track-index
+groups are dealt whole to the cards of the tiles mesh
+(``parallel/sharding.py``: ``tiles_devices``, ``map_cards``), each card
+with a plan executor of its own; workers read the state and return host
+data, and every state write happens on the caller, in work order.  The
+bytes do not depend on the number of cards; with one, everything runs
+on the caller's thread.
+
 Entry points:
 
     blob, stats = compress_tiled(u, v, cfg, TileGrid(...))
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import time
 from typing import Optional
@@ -66,6 +75,7 @@ from .. import obs
 from . import backend, compressor, ebound, ebpolicy, encode, entropy, \
     fixedpoint, pipeline, trajectory
 from . import grid as mesh
+from ..parallel import sharding
 
 # v4: prologue frame + per-frame preambles + per-unit CRC; v5: device
 # codec (CPTH1 unit frames); v6: adaptive eb policy (the header records
@@ -253,6 +263,10 @@ class _State:
     cfg: object
     grid: TileGrid
     ex: object                      # pipeline.PlanExecutor
+    # the tiles mesh (sharding.tiles_devices; a card may be listed twice)
+    # and the plan bound to each of its cards
+    cards: list
+    exs: dict
     H: int
     W: int
     scale: float
@@ -285,7 +299,8 @@ class _State:
     eb_factor: float = 1.0
     # unit chunks run, by stage and kind: "multi" (unit-batched entries),
     # "single" (whole-field entries), "sl_*" (verify chunks with SL
-    # blocks, the ones that decode through K3)
+    # blocks, the ones that decode through K3); "units": by stage, the
+    # units each worker of the tiles mesh ran
     chunks: dict = dataclasses.field(default_factory=lambda: {
         "verify": {"multi": 0, "single": 0, "sl_multi": 0, "sl_single": 0},
         "emit": {"multi": 0, "single": 0}})
@@ -314,6 +329,7 @@ def _init_state(cfg, grid: TileGrid, H, W, vrange, sink, device):
                                      cfg.fixed_bits)
     p = pipeline.plan_from_cfg(cfg, scale, eb_abs, name="tiled")
     ex = pipeline.PlanExecutor(p, device)
+    cards = sharding.tiles_devices(device)
     all_ll = p.tau < 1 or p.n_usable < 1
     tindex = None
     if cfg.track_index:
@@ -321,7 +337,9 @@ def _init_state(cfg, grid: TileGrid, H, W, vrange, sink, device):
 
         tindex = TrackIndexBuilder(grid, device)
     st = _State(
-        cfg=cfg, grid=grid, ex=ex, H=H, W=W, scale=p.scale,
+        cfg=cfg, grid=grid, ex=ex, cards=cards,
+        exs={c: pipeline.PlanExecutor(p, c) for c in cards}, H=H, W=W,
+        scale=p.scale,
         eb_abs=p.eb_abs, tau=p.tau, xi_unit=p.xi_unit, tindex=tindex,
         batch_cap=max(int(cfg.batch_cap), 1),
         u=_Planes(H, W, np.float32, 0.0),
@@ -334,6 +352,8 @@ def _init_state(cfg, grid: TileGrid, H, W, vrange, sink, device):
         ebf=None if pol is None else _Planes(H, W, np.float64, np.inf),
         eb_factor=eb_factor,
     )
+    st.chunks["units"] = {stage: [0] * len(cards)
+                          for stage in ("derive", "verify", "emit", "index")}
     # the prologue frame repeats the global decode parameters up front
     # (shape[0] is 0: the length is known only at the end)
     prologue = _container_header(st, 0)
@@ -362,11 +382,36 @@ def _add_frame(st: _State, t, u_t, v_t, ufp_t=None, vfp_t=None):
     st.vfp.put(t, vfp_t)
 
 
-def _stack(st: _State, specs, planes: _Planes, box="ext_box"):
-    """The specs' boxes of ``planes`` stacked, as one tensor on the
-    state's device (one upload)."""
+def _stack(specs, planes: _Planes, card, box="ext_box"):
+    """The specs' boxes of ``planes`` stacked, as one tensor on ``card``
+    (one upload)."""
     return torch.as_tensor(np.stack([planes.box(getattr(s, box))
-                                     for s in specs]), device=st.device)
+                                     for s in specs]), device=card)
+
+
+def _map(st: _State, stage: str, fn, items, weight=len):
+    """``fn(st, items_of_card, card)`` over the tiles mesh; the results in
+    item order.  Tallies the units each worker ran under ``stage``."""
+    out, slots = sharding.map_cards(functools.partial(fn, st), items,
+                                    st.cards, weight)
+    for it, k in zip(items, slots):
+        st.chunks["units"][stage][k] += weight(it)
+    return out
+
+
+def _derive_groups(st: _State, groups, card):
+    """Per extension-shape group on ``card``: the units' eb planes (host)
+    and original face predicates (on the host when the mesh has several
+    workers: a verify chunk may run on another card)."""
+    out = []
+    for specs in groups:
+        ebs, slice_c, slab_c = ebound.derive_vertex_eb_units(
+            _stack(specs, st.ufp, card), _stack(specs, st.vfp, card),
+            int(max(st.tau, 1)))
+        if len(st.cards) > 1:
+            slice_c, slab_c = slice_c.cpu(), slab_c.cpu()
+        out.append((ebs.cpu().numpy(), slice_c, slab_c))
+    return out
 
 
 def _derive_window(st: _State, w):
@@ -375,16 +420,18 @@ def _derive_window(st: _State, w):
     groups = {}
     for spec in w.specs:
         groups.setdefault(spec.ext_shape, []).append(spec)
+    groups = list(groups.values())
     with obs.span("tiling.derive_window", window=int(w.wi),
                   units=len(w.specs)):
-        for specs in groups.values():
-            ebs, slice_c, slab_c = ebound.derive_vertex_eb_units(
-                _stack(st, specs, st.ufp), _stack(st, specs, st.vfp),
-                int(max(st.tau, 1)))
-            ebs = ebs.cpu().numpy()
+        rows = {}
+        for specs, (ebs, slice_c, slab_c) in zip(
+                groups, _map(st, "derive", _derive_groups, groups)):
             for k, spec in enumerate(specs):
-                st.eb.min_box(spec.ext_box, ebs[k])
-                st.preds[spec.key] = (slice_c[k], slab_c[k])
+                rows[spec.key] = (ebs[k], slice_c[k], slab_c[k])
+        for spec in w.specs:
+            ebs, slice_c, slab_c = rows[spec.key]
+            st.eb.min_box(spec.ext_box, ebs)
+            st.preds[spec.key] = (slice_c, slab_c)
     if st.policy is not None:
         # the adaptive policy's per-vertex caps (and f64 bounds for the
         # verify check and the eb_base headers), min-reduced: idempotent
@@ -400,55 +447,54 @@ def _derive_window(st: _State, w):
 # unit chunks: encode + one verify round
 # ----------------------------------------------------------------------
 
-def _encode_chunk(st: _State, specs, ufp, vfp):
-    """Encode a chunk of same-signature units from their uploaded
-    (B, Te, He, We) boxes.  Returns (xu_e, xv_e, ll_e, res_u, res_v, bms)
-    with the unit axis first (bms host numpy)."""
-    ex = st.ex
+def _encode_chunk(st: _State, specs, ufp, vfp, card):
+    """Encode a chunk of same-signature units from their (B, Te, He, We)
+    boxes uploaded to ``card``.  Returns (xu_e, xv_e, ll_e, res_u, res_v,
+    bms) with the unit axis first (bms host numpy)."""
+    ex = st.exs[card]
     owned = specs[0].owned
-    eb = _stack(st, specs, st.eb)
-    extra = _stack(st, specs, st.forced)
+    eb = _stack(specs, st.eb, card)
+    extra = _stack(specs, st.forced, card)
     if len(specs) > 1:
         return ex.encode_units(owned, ufp, vfp, eb, extra)
     out = ex.encode_unit(ufp[0], vfp[0], eb[0], extra[0], owned)
     return tuple(x[None] for x in out)
 
 
-def _round_chunk(st: _State, specs, deltas):
-    """One verify round on a chunk of same-signature units, all screened
-    (deltas None: first contact) or all incremental (deltas: the ext
-    masks of vertices forced since the unit last checked).  Returns
-    ([(spec, forced_ext host bool)], n_bad): decisions bit-equal to the
-    monolithic round restricted to each extension."""
-    ex = st.ex
+def _round_chunk(st: _State, specs, deltas, card):
+    """One verify round on a chunk of same-signature units on ``card``,
+    all screened (deltas None: first contact) or all incremental
+    (deltas: the ext masks of vertices forced since the unit last
+    checked).  Returns ([(spec, forced_ext host bool)], n_bad, whether a
+    unit has SL blocks): decisions bit-equal to the monolithic round
+    restricted to each extension."""
+    ex = st.exs[card]
     B = len(specs)
-    ufp = _stack(st, specs, st.ufp)
-    vfp = _stack(st, specs, st.vfp)
-    extra = _stack(st, specs, st.forced)
-    xu_e, xv_e, ll_e, res_u, res_v, bms = _encode_chunk(st, specs, ufp, vfp)
+    ufp = _stack(specs, st.ufp, card)
+    vfp = _stack(specs, st.vfp, card)
+    extra = _stack(specs, st.forced, card)
+    xu_e, xv_e, ll_e, res_u, res_v, bms = _encode_chunk(st, specs, ufp, vfp,
+                                                        card)
     # simulate the units' exact decode, paste it into the extensions
     if B > 1:
         xu_d, xv_d = ex.decode_units(res_u, res_v, bms)
     else:
         xu_d, xv_d = (x[None] for x in ex.decode_fields(res_u[0], res_v[0],
                                                          bms[0]))
-    has_sl = bool(bms[:, 1:].any())
-    kind = "multi" if B > 1 else "single"
-    st.chunks["verify"][kind] += 1
-    st.chunks["verify"]["sl_" + kind] += has_sl
     o = (slice(None),) + specs[0].owned_in_ext
     xu_sim = xu_e.clone()
     xv_sim = xv_e.clone()
     xu_sim[o] = xu_d
     xv_sim[o] = xv_d
-    bound = st.eb_abs if st.policy is None else _stack(st, specs, st.ebf)
+    bound = st.eb_abs if st.policy is None else _stack(specs, st.ebf, card)
     forced, n_pt, ur_fp, vr_fp = pipeline._check_pt_core(
-        xu_sim, xv_sim, ll_e, extra, _stack(st, specs, st.u),
-        _stack(st, specs, st.v), st.scale, st.xi_unit, bound)
+        xu_sim, xv_sim, ll_e, extra, _stack(specs, st.u, card),
+        _stack(specs, st.v, card), st.scale, st.xi_unit, bound)
     delta = None if deltas[0] is None else torch.as_tensor(
-        np.stack(deltas), device=st.device)
-    slice0 = torch.stack([st.preds[s.key][0] for s in specs])
-    slab0 = torch.stack([st.preds[s.key][1] for s in specs])
+        np.stack(deltas), device=card)
+    # no copy where the window's derivation ran on this card
+    slice0 = torch.stack([st.preds[s.key][0] for s in specs]).to(card)
+    slab0 = torch.stack([st.preds[s.key][1] for s in specs]).to(card)
     tabs = ex.tables(*specs[0].ext_shape[1:])
     if B > 1:
         n_face = backend.verify_faces_units(
@@ -461,7 +507,8 @@ def _round_chunk(st: _State, specs, deltas):
             tabs["slab"], slice0[0], slab0[0], forced[0])
     n_bad = int(n_pt + n_face)
     forced_np = forced.cpu().numpy()
-    return [(spec, forced_np[b]) for b, spec in enumerate(specs)], n_bad
+    return ([(spec, forced_np[b]) for b, spec in enumerate(specs)], n_bad,
+            bool(bms[:, 1:].any()))
 
 
 def _chunks(st: _State, items, key):
@@ -477,15 +524,24 @@ def _chunks(st: _State, items, key):
             for lo in range(0, len(g), st.batch_cap)]
 
 
+def _round_chunks(st: _State, chunks, card):
+    return [_round_chunk(st, [s for s, _ in chunk], [d for _, d in chunk],
+                         card) for chunk in chunks]
+
+
 def _round_work(st: _State, work):
-    """One verify round over ``work`` = [(spec, delta)].  Returns
-    ([(spec, forced_ext)], n_bad)."""
-    out, n_bad = [], 0
-    for chunk in _chunks(st, work, lambda sd: (_sig(sd[0]), sd[1] is None)):
-        if st.ex.plan.batch_units:
+    """One verify round over ``work`` = [(spec, delta)], its chunks dealt
+    whole to the tiles mesh.  Returns ([(spec, forced_ext)], n_bad)."""
+    chunks = _chunks(st, work, lambda sd: (_sig(sd[0]), sd[1] is None))
+    if st.ex.plan.batch_units:
+        for chunk in chunks:
             obs.observe("pipeline.batch_group_size", len(chunk))
-        res, nb = _round_chunk(st, [s for s, _ in chunk],
-                               [d for _, d in chunk])
+    out, n_bad = [], 0
+    for chunk, (res, nb, has_sl) in zip(
+            chunks, _map(st, "verify", _round_chunks, chunks)):
+        kind = "multi" if len(chunk) > 1 else "single"
+        st.chunks["verify"][kind] += 1
+        st.chunks["verify"]["sl_" + kind] += has_sl
         out.extend(res)
         n_bad += nb
     return out, n_bad
@@ -563,7 +619,7 @@ def _fixpoint(st: _State, windows, frontier: int = 0):
 # crossing nodes for the TrackIndexBuilder.
 
 
-def _local_tet_faces(key, device: str):
+def _local_tet_faces(key, device):
     """(n_slabs * Ntl * 4, 3) int64 tensor of the tet-face vertex ids,
     local to the extension box, of the tets a unit owns, in the grid.py
     order (tau1|tau2|tau3 over tri1|tri2 over row-major cells); None
@@ -595,18 +651,12 @@ def _local_tet_faces(key, device: str):
     return out.reshape(-1, 3).contiguous()
 
 
-def _unit_segment_records(st: _State, spec: TileSpec, crossed, key):
-    """A unit's local crossings -> global segments (face id pairs, anchor
-    cells) + crossing nodes (face id, position, CP type).  ``crossed``
-    is the unit's (n_slabs * Ntl * 4,) bool tensor; only the tets with
-    two crossed faces reach the host."""
-    from ..analysis import classify as classify_mod
-    from ..analysis import extraction
-
+def _crossed_rows(spec: TileSpec, crossed, key):
+    """The device half of a unit's segment records: ``crossed`` is its
+    (n_slabs * Ntl * 4,) bool tensor; only the tets with two crossed
+    faces reach the host, as (tet index j, their 4 flags), or None."""
     nsl, nci, ncj = key[6:]
-    H, W = st.H, st.W
-    ncc = nci * ncj
-    Ntl = 6 * ncc
+    Ntl = 6 * nci * ncj
     crossed = crossed.reshape(nsl * Ntl, 4)
     n_crossed = crossed.sum(dim=1)
     if bool(((n_crossed != 0) & (n_crossed != 2)).any()):
@@ -614,9 +664,24 @@ def _unit_segment_records(st: _State, spec: TileSpec, crossed, key):
                                 t_lo=spec.t0)
     j = torch.nonzero(n_crossed == 2).reshape(-1)
     if len(j) == 0:
+        return None
+    return j.cpu().numpy(), crossed[j].cpu().numpy()
+
+
+def _unit_segment_records(st: _State, spec: TileSpec, crossed_rows, key):
+    """A unit's local crossings (``_crossed_rows``) -> global segments
+    (face id pairs, anchor cells) + crossing nodes (face id, position,
+    CP type), on the host."""
+    from ..analysis import classify as classify_mod
+    from ..analysis import extraction
+
+    if crossed_rows is None:
         return _empty_records()
-    rows = crossed[j].cpu().numpy()
-    j = j.cpu().numpy()
+    j, rows = crossed_rows
+    nsl, nci, ncj = key[6:]
+    H, W = st.H, st.W
+    ncc = nci * ncj
+    Ntl = 6 * ncc
     _, slots = np.nonzero(rows)
     slots = slots.reshape(-1, 2)
     rt = j // Ntl
@@ -650,9 +715,31 @@ def _empty_records():
             e((0, 3), np.float64), e(0, np.int8))
 
 
+def _segment_groups(st: _State, groups, card):
+    """Per geometry group (key, specs) on ``card``: one predicate launch,
+    then each unit's ``_crossed_rows``."""
+    out = []
+    for key, specs in groups:
+        faces = _local_tet_faces(key, card)
+        if faces is None:
+            out.append([None] * len(specs))
+            continue
+        B = len(specs)
+        n_ext = int(np.prod(specs[0].ext_shape))
+        verts = (faces[None] + (torch.arange(B, device=card)
+                                * n_ext)[:, None, None]).reshape(-1, 3)
+        crossed = backend.face_crossed(
+            _stack(specs, st.ufp, card).reshape(-1),
+            _stack(specs, st.vfp, card).reshape(-1), verts).reshape(B, -1)
+        out.append([_crossed_rows(spec, crossed[b], key)
+                    for b, spec in enumerate(specs)])
+    return out
+
+
 def _window_segment_records(st: _State, w) -> dict:
     """Segment records of one window's units, one predicate launch per
-    extension-geometry group."""
+    extension-geometry group; the groups go over the tiles mesh, the
+    host conversion runs here."""
     T = st.n_frames
     groups = {}
     for spec in w.specs:
@@ -661,23 +748,12 @@ def _window_segment_records(st: _State, w) -> dict:
             min(spec.i1, st.H - 1) - spec.i0,
             min(spec.j1, st.W - 1) - spec.j0))
         groups.setdefault(key, []).append(spec)
+    groups = list(groups.items())
     records = {}
-    for key, specs in groups.items():
-        faces = _local_tet_faces(key, str(st.device))
-        if faces is None:
-            for spec in specs:
-                records[spec.key] = _empty_records()
-            continue
-        B = len(specs)
-        n_ext = int(np.prod(specs[0].ext_shape))
-        verts = (faces[None] + (torch.arange(B, device=st.device)
-                                * n_ext)[:, None, None]).reshape(-1, 3)
-        crossed = backend.face_crossed(
-            _stack(st, specs, st.ufp).reshape(-1),
-            _stack(st, specs, st.vfp).reshape(-1), verts).reshape(B, -1)
-        for b, spec in enumerate(specs):
-            records[spec.key] = _unit_segment_records(st, spec, crossed[b],
-                                                      key)
+    for (key, specs), rows in zip(groups, _map(
+            st, "index", _segment_groups, groups, lambda g: len(g[1]))):
+        for spec, r in zip(specs, rows):
+            records[spec.key] = _unit_segment_records(st, spec, r, key)
     return records
 
 
@@ -705,53 +781,65 @@ class _UnitPayload:
     eb_base: object = None  # adaptive: the unit's loosest absolute bound
 
 
+def _emit_chunks(st: _State, chunks, card):
+    """The final-mask encode of unit chunks on ``card``: per chunk, its
+    units' payloads with the host data of this stage only (the lossless
+    mask, the residual streams -- coded here, on the card, with the
+    device codec -- and the blockmap)."""
+    ex = st.exs[card]
+    out = []
+    for chunk in chunks:
+        ufp = _stack(chunk, st.ufp, card)
+        vfp = _stack(chunk, st.vfp, card)
+        _, _, ll_e, res_u, res_v, bms = _encode_chunk(st, chunk, ufp, vfp,
+                                                      card)
+        o = (slice(None),) + chunk[0].owned_in_ext
+        ll_o = ll_e[o].cpu().numpy()
+        if ex.codec != "device":
+            res_u, res_v = res_u.cpu().numpy(), res_v.cpu().numpy()
+        out.append([_UnitPayload(key=spec.key, box=spec.owned_box,
+                                 ll=ll_o[b], u_ll=None, v_ll=None,
+                                 res_u=res_u[b], res_v=res_v[b], bm=bms[b],
+                                 seg=None)
+                    for b, spec in enumerate(chunk)])
+    if ex.codec == "device":
+        _attach_entropy_fragments(ex, [p for ps in out for p in ps])
+    return out
+
+
 def _unit_payloads(st: _State, w):
     """The final-mask encode of one window's units (chunked by
-    signature as the verify rounds are) and their payloads, in the
-    window's spec order (the order the writer emits)."""
+    signature as the verify rounds are, the chunks dealt to the tiles
+    mesh) and their payloads, in the window's spec order (the order the
+    writer emits)."""
     with obs.span("tiling.unit_payloads", window=int(w.wi),
                   units=len(w.specs)):
         seg_records = _window_segment_records(st, w) \
             if st.tindex is not None else None
-        streams = {}
-        for chunk in _chunks(st, w.specs, _sig):
-            ufp = _stack(st, chunk, st.ufp)
-            vfp = _stack(st, chunk, st.vfp)
-            _, _, ll_e, res_u, res_v, bms = _encode_chunk(st, chunk, ufp,
-                                                          vfp)
+        chunks = _chunks(st, w.specs, _sig)
+        encoded = {}
+        for chunk, ps in zip(chunks, _map(st, "emit", _emit_chunks, chunks)):
             st.chunks["emit"]["multi" if len(chunk) > 1 else "single"] += 1
-            o = (slice(None),) + chunk[0].owned_in_ext
-            ll_o = ll_e[o].cpu().numpy()
-            if st.ex.codec != "device":
-                # the host codec's streams go to the host here, on the
-                # caller's thread (the device codec codes them below)
-                res_u, res_v = res_u.cpu().numpy(), res_v.cpu().numpy()
-            for b, spec in enumerate(chunk):
-                streams[spec.key] = (ll_o[b], res_u[b], res_v[b], bms[b])
+            encoded.update((p.key, p) for p in ps)
         payloads = []
         for spec in w.specs:
-            ll_o, res_u, res_v, bm = streams.pop(spec.key)
-            u_o = st.u.box(spec.owned_box)
-            v_o = st.v.box(spec.owned_box)
-            payloads.append(_UnitPayload(
-                key=spec.key, box=spec.owned_box, ll=ll_o,
-                u_ll=u_o[ll_o], v_ll=v_o[ll_o], res_u=res_u, res_v=res_v,
-                bm=bm,
-                seg=None if seg_records is None else seg_records[spec.key],
-                eb_base=(None if st.policy is None else
-                         float(st.ebf.box(spec.owned_box).max()))))
+            p = encoded.pop(spec.key)
+            p.u_ll = st.u.box(spec.owned_box)[p.ll]
+            p.v_ll = st.v.box(spec.owned_box)[p.ll]
+            p.seg = None if seg_records is None else seg_records[spec.key]
+            if st.policy is not None:
+                p.eb_base = float(st.ebf.box(spec.owned_box).max())
+            payloads.append(p)
             # its original predicates and seam snapshot are dead now
             st.preds.pop(spec.key, None)
             st.seen.pop(spec.key, None)
-        if st.ex.codec == "device":
-            _attach_entropy_fragments(st, payloads)
     return payloads
 
 
-def _attach_entropy_fragments(st: _State, payloads):
-    """Device entropy coding of one window's payloads, stacked by owned
+def _attach_entropy_fragments(ex, payloads):
+    """Device entropy coding of payloads on one card, stacked by owned
     shape (one batched pass a shape; per-unit tables keep the bytes
-    independent of the grouping)."""
+    independent of the grouping, so of the cards' shares)."""
     groups = {}
     for i, p in enumerate(payloads):
         groups.setdefault(tuple(p.res_u.shape), []).append(i)
@@ -759,7 +847,7 @@ def _attach_entropy_fragments(st: _State, payloads):
                   groups=len(groups)):
         for idxs in groups.values():
             obs.observe("pipeline.batch_group_size", len(idxs))
-            frags = st.ex.entropy_fragments(
+            frags = ex.entropy_fragments(
                 torch.stack([payloads[i].res_u for i in idxs]),
                 torch.stack([payloads[i].res_v for i in idxs]))
             for i, frag in zip(idxs, frags):

@@ -122,4 +122,17 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+    """The calling thread's current stream on ``device``; a launch on it
+    runs under ``torch.cuda.device(device)`` (the sources launch on the
+    runtime's current device)."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper) -> None:
+    """One more launch of ``wrapper`` (``wrapper.launches``); wrappers
+    launch from the tiles mesh's worker threads too."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

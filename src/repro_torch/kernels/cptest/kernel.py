@@ -72,10 +72,11 @@ def face_crossed(u_flat: torch.Tensor, v_flat: torch.Tensor,
                          f"{tuple(v_flat.shape)} {tuple(verts.shape)}")
     n = verts.shape[0]
     out = torch.empty(n, dtype=torch.bool, device=u_flat.device)
-    err = _fn()(u_flat.data_ptr(), v_flat.data_ptr(), verts.data_ptr(),
-                out.data_ptr(), n, _build.stream_ptr(u_flat.device))
+    with torch.cuda.device(u_flat.device):
+        err = _fn()(u_flat.data_ptr(), v_flat.data_ptr(), verts.data_ptr(),
+                    out.data_ptr(), n, _build.stream_ptr(u_flat.device))
     _build.check(err, "face_crossed")
-    face_crossed.launches += 1
+    _build.count(face_crossed)
     return out
 
 
@@ -100,7 +101,7 @@ def verify_faces(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
     the device."""
     out = _launch_verify(None, ur_fp, vr_fp, ufp, vfp, delta, slice_tab,
                          slab_tab, slice0, slab0, forced)
-    verify_faces.launches += 1
+    _build.count(verify_faces)
     return out
 
 
@@ -120,7 +121,7 @@ def verify_faces_units(ur_fp: torch.Tensor, vr_fp: torch.Tensor, ufp, vfp,
         raise ValueError(f"bad unit stack shape {tuple(ur_fp.shape)}")
     out = _launch_verify(ur_fp.shape[0], ur_fp, vr_fp, ufp, vfp, delta,
                          slice_tab, slab_tab, slice0, slab0, forced)
-    verify_faces_units.launches += 1
+    _build.count(verify_faces_units)
     return out
 
 

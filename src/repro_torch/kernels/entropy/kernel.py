@@ -58,7 +58,7 @@ def symbol_histogram(sym: torch.Tensor) -> torch.Tensor:
         err = _fn()(sym.data_ptr(), B, n, hist.data_ptr(), work.data_ptr(),
                     stream)
     _build.check(err, "symbol_histogram")
-    symbol_histogram.launches += 1
+    _build.count(symbol_histogram)
     return hist
 
 

@@ -121,14 +121,15 @@ def lorenzo_residual_units(ufp: torch.Tensor, vfp: torch.Tensor,
     run = int(run)
     if run < 1 or B * tiles * -(-Te // run) >= 2 ** 31:
         raise ValueError(f"run {run} gives no grid for {tuple(ufp.shape)}")
-    err = _units_fn()(ufp.data_ptr(), vfp.data_ptr(), k.data_ptr(),
-                      lossless.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
-                      xu.data_ptr(), xv.data_ptr(), B, Te, He, We, To, Ho,
-                      Wo, ot, oi, oj, block, run, xi_unit,
-                      *divisor_params(2 * xi_unit),
-                      _build.stream_ptr(ufp.device))
+    with torch.cuda.device(ufp.device):
+        err = _units_fn()(ufp.data_ptr(), vfp.data_ptr(), k.data_ptr(),
+                          lossless.data_ptr(), res_u.data_ptr(),
+                          res_v.data_ptr(), xu.data_ptr(), xv.data_ptr(), B,
+                          Te, He, We, To, Ho, Wo, ot, oi, oj, block, run,
+                          xi_unit, *divisor_params(2 * xi_unit),
+                          _build.stream_ptr(ufp.device))
     _build.check(err, "lorenzo_residual_units")
-    lorenzo_residual_units.launches += 1
+    _build.count(lorenzo_residual_units)
     return res_u, res_v, xu, xv
 
 
@@ -159,14 +160,15 @@ def lorenzo_residual(ufp: torch.Tensor, vfp: torch.Tensor, k: torch.Tensor,
     tiles = -(-H // TILE[0]) * -(-W // TILE[1])
     if run < 1 or tiles * -(-T // run) >= 2 ** 31:
         raise ValueError(f"run {run} gives no grid for {tuple(ufp.shape)}")
-    err = _fn()(ufp.data_ptr(), vfp.data_ptr(), k.data_ptr(),
-                lossless.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
-                xu.data_ptr() if want_x else None,
-                xv.data_ptr() if want_x else None, T, H, W, block, run,
-                xi_unit, *divisor_params(2 * xi_unit),
-                _build.stream_ptr(ufp.device))
+    with torch.cuda.device(ufp.device):
+        err = _fn()(ufp.data_ptr(), vfp.data_ptr(), k.data_ptr(),
+                    lossless.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
+                    xu.data_ptr() if want_x else None,
+                    xv.data_ptr() if want_x else None, T, H, W, block, run,
+                    xi_unit, *divisor_params(2 * xi_unit),
+                    _build.stream_ptr(ufp.device))
     _build.check(err, "lorenzo_residual")
-    lorenzo_residual.launches += 1
+    _build.count(lorenzo_residual)
     return out
 
 

@@ -47,12 +47,13 @@ def sl_step(xu_prev: torch.Tensor, xv_prev: torch.Tensor, g2f: float,
     H, W = xu_prev.shape
     pu = torch.empty_like(xu_prev)
     pv = torch.empty_like(xv_prev)
-    err = _fn("sl_step", 2)(
-        xu_prev.data_ptr(), xv_prev.data_ptr(), pu.data_ptr(), pv.data_ptr(),
-        H, W, float(g2f), float(cfl_x), float(cfl_y), float(d_max),
-        int(n_max), _build.stream_ptr(xu_prev.device))
+    with torch.cuda.device(xu_prev.device):
+        err = _fn("sl_step", 2)(
+            xu_prev.data_ptr(), xv_prev.data_ptr(), pu.data_ptr(),
+            pv.data_ptr(), H, W, float(g2f), float(cfl_x), float(cfl_y),
+            float(d_max), int(n_max), _build.stream_ptr(xu_prev.device))
     _build.check(err, "sl_step")
-    sl_step.launches += 1
+    _build.count(sl_step)
     return pu, pv
 
 
@@ -71,12 +72,13 @@ def sl_step_batched(xu_prev: torch.Tensor, xv_prev: torch.Tensor,
     pv = torch.empty_like(xv_prev)
     if pu.numel() == 0:
         return pu, pv
-    err = _fn("sl_step_batched", 3)(
-        xu_prev.data_ptr(), xv_prev.data_ptr(), pu.data_ptr(), pv.data_ptr(),
-        B, H, W, float(g2f), float(cfl_x), float(cfl_y), float(d_max),
-        int(n_max), _build.stream_ptr(xu_prev.device))
+    with torch.cuda.device(xu_prev.device):
+        err = _fn("sl_step_batched", 3)(
+            xu_prev.data_ptr(), xv_prev.data_ptr(), pu.data_ptr(),
+            pv.data_ptr(), B, H, W, float(g2f), float(cfl_x), float(cfl_y),
+            float(d_max), int(n_max), _build.stream_ptr(xu_prev.device))
     _build.check(err, "sl_step_batched")
-    sl_step_batched.launches += 1
+    _build.count(sl_step_batched)
     return pu, pv
 
 
@@ -146,14 +148,15 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
     if xu.numel() == 0:
         return xu, xv
     grid = ctypes.c_int(0)
-    err = _decode_fn("sl_decode", 4)(
-        c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
-        blockmap.data_ptr(), flags.data_ptr(), xu.data_ptr(), xv.data_ptr(),
-        T, H, W, int(block), float(g2f), float(cfl_x), float(cfl_y),
-        float(d_max), int(n_max), ctypes.byref(grid),
-        _build.stream_ptr(c2u.device))
+    with torch.cuda.device(c2u.device):
+        err = _decode_fn("sl_decode", 4)(
+            c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(),
+            res_v.data_ptr(), blockmap.data_ptr(), flags.data_ptr(),
+            xu.data_ptr(), xv.data_ptr(), T, H, W, int(block), float(g2f),
+            float(cfl_x), float(cfl_y), float(d_max), int(n_max),
+            ctypes.byref(grid), _build.stream_ptr(c2u.device))
     _build.check(err, f"sl_decode ({grid.value} CTAs)")
-    sl_decode.launches += 1
+    _build.count(sl_decode)
     sl_decode.grid = grid.value
     return xu, xv
 
@@ -184,14 +187,16 @@ def sl_decode_units(c2u: torch.Tensor, c2v: torch.Tensor,
         return xu, xv
     sync = (flags != 0).any(dim=0).to(torch.uint8).contiguous()
     grid = ctypes.c_int(0)
-    err = _decode_fn("sl_decode_units", 5)(
-        c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(), res_v.data_ptr(),
-        blockmap.data_ptr(), flags.data_ptr(), sync.data_ptr(),
-        xu.data_ptr(), xv.data_ptr(), B, T, H, W, int(block), float(g2f),
-        float(cfl_x), float(cfl_y), float(d_max), int(n_max),
-        ctypes.byref(grid), _build.stream_ptr(c2u.device))
+    with torch.cuda.device(c2u.device):
+        err = _decode_fn("sl_decode_units", 5)(
+            c2u.data_ptr(), c2v.data_ptr(), res_u.data_ptr(),
+            res_v.data_ptr(), blockmap.data_ptr(), flags.data_ptr(),
+            sync.data_ptr(), xu.data_ptr(), xv.data_ptr(), B, T, H, W,
+            int(block), float(g2f), float(cfl_x), float(cfl_y),
+            float(d_max), int(n_max), ctypes.byref(grid),
+            _build.stream_ptr(c2u.device))
     _build.check(err, f"sl_decode_units ({grid.value} CTAs)")
-    sl_decode_units.launches += 1
+    _build.count(sl_decode_units)
     sl_decode_units.grid = grid.value
     return xu, xv
 

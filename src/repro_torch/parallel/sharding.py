@@ -1,7 +1,7 @@
 """Logical-axis sharding rules for params, optimizer state and
-activations; their placement on a ``torch.distributed`` device mesh; a
-per-unit function over a leading unit axis; the shared host thread pools
-of the read path.
+activations; their placement on a ``torch.distributed`` device mesh; the
+compressor's tiles mesh and a per-unit function over a leading unit
+axis; the shared host thread pools.
 
 Sharding rules (the JAX package's ``repro.parallel.sharding``, its rules
 half).  Mesh axes:
@@ -32,13 +32,19 @@ MoE's routing and experts, the embedding lookup): computations that
 never cross a shard, which DTensor would otherwise dispatch op by op.
 
 Tile units.  The JAX package shard_maps same-signature tile units over a
-device mesh (``map_tiles``) and pads ragged batches to the device count
-(``map_tiles_padded``).  The port runs one card, and its unit-batched
-stages are kernels with a unit axis of their own (core/backend.py), so
-here the two are the same thing: ``fn`` applied to every row of the
-stacked inputs, the results stacked again.  It is what the plain
-versions of the unit-batched kernels are built from.  Spreading units
-over several cards is not ported (ROADMAP Queue 1 item 13e).
+1-axis "tiles" mesh of every local device (``tiles_mesh``, ``map_tiles``;
+``map_tiles_padded`` pads a ragged batch to the device count).  Tiles are
+independent and the mapping moves nothing between devices.  The port's
+tiles mesh is every visible card (``tiles_devices``: the executor's
+own card first; ``CUDA_VISIBLE_DEVICES`` chooses them, as it chooses
+JAX's devices).  ``map_cards`` deals whole work items (the tiled
+compressor's unit chunks, eb-derivation and track-index groups) to the
+cards, runs each card's share on a worker thread under that card and
+a stream of the worker's own, and hands the results back in item order;
+a ragged split needs no padding.  With one card it calls ``fn`` on the
+caller's thread: no thread, no stream, no copy.  The container bytes do
+not depend on the number of cards.  ``map_tiles`` stays the row loop
+the plain versions of the unit-batched kernels are built from.
 """
 from __future__ import annotations
 
@@ -525,8 +531,92 @@ def map_tiles(fn, *batched):
     return _stack([fn(*(b[i] for b in batched)) for i in range(n)])
 
 
-# one card: nothing to pad to a device-count multiple
-map_tiles_padded = map_tiles
+@functools.lru_cache(maxsize=None)
+def _cuda_tiles(first: int) -> tuple:
+    return tuple(torch.device("cuda", k) for k in
+                 [first] + [k for k in range(torch.cuda.device_count())
+                            if k != first])
+
+
+def tiles_devices(device) -> list:
+    """The cards of the tiles mesh for an executor bound to ``device``:
+    every visible CUDA card ``cuda:k``, the executor's own first; the CPU
+    alone for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev]
+    return list(_cuda_tiles(torch.cuda.current_device() if dev.index is None
+                            else dev.index))
+
+
+def deal(weights, n: int) -> list:
+    """Item indices for each of ``n`` workers: heaviest item first (ties
+    in item order) to the least loaded worker (ties: the lowest), each
+    worker's indices ascending.  Deterministic."""
+    loads = [0] * n
+    parts = [[] for _ in range(n)]
+    for i in sorted(range(len(weights)), key=lambda i: -weights[i]):
+        k = loads.index(min(loads))
+        parts[k].append(i)
+        loads[k] += weights[i]
+    return [sorted(p) for p in parts]
+
+
+_STREAMS: dict = {}
+
+
+@contextlib.contextmanager
+def _on_card(slot: int, card: torch.device):
+    """Worker ``slot``'s context on ``card``: the card current and a
+    stream of the slot's own (ordered after the card's default stream),
+    synchronized before the results go back."""
+    if card.type != "cuda":
+        yield
+        return
+    stream = _STREAMS.get((slot, card.index))
+    if stream is None:
+        stream = _STREAMS[slot, card.index] = torch.cuda.Stream(card)
+    with torch.cuda.device(card):
+        stream.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(stream):
+            try:
+                yield
+            finally:
+                stream.synchronize()
+
+
+def map_cards(fn, items, devices, weight=len):
+    """``fn(items_of_card, card) -> one result an item`` over the tiles
+    mesh ``devices`` (a card listed twice gets two workers).  Items are
+    dealt whole by ``weight`` (``deal``).  Returns (results in item
+    order, the worker index that ran each item).  A worker's exception
+    re-raises on the caller with its type, the first in item order."""
+    items = list(items)
+    if len(devices) == 1:
+        return list(fn(items, devices[0])), [0] * len(items)
+    jobs = [(k, part) for k, part in
+            enumerate(deal([weight(it) for it in items], len(devices)))
+            if part]
+
+    def run(job):
+        k, part = job
+        with _on_card(k, devices[k]):
+            return list(fn([items[i] for i in part], devices[k]))
+
+    pool = host_pool("tiles", len(devices))
+    futures = [pool.submit(run, job) for job in jobs]
+    results, slots, failed = [None] * len(items), [0] * len(items), []
+    for (k, part), f in zip(jobs, futures):
+        try:
+            out = f.result()
+        except BaseException as e:     # noqa: BLE001 -- re-raised below
+            failed.append((part[0], e))
+            continue
+        for i, r in zip(part, out):
+            results[i], slots[i] = r, k
+    if failed:
+        raise min(failed, key=lambda x: x[0])[1]
+    return results, slots
 
 
 @functools.lru_cache(maxsize=8)

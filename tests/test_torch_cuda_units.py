@@ -145,3 +145,73 @@ def test_card_tiled_blob_equals_cpu_blob(dev, codec, batch_units):
     d_dev = repro_torch.decompress(b_dev, device=dev)
     d_cpu = repro_torch.decompress(b_dev, device="cpu")
     assert all(np.array_equal(a, b) for a, b in zip(d_dev, d_cpu))
+
+
+def test_launches_run_on_the_tensors_card():
+    """Every kernel launches on its tensors' card, whatever the calling
+    thread's current card: K1 (both entries), K2 ``face_crossed`` and
+    ``verify_faces_units``, K3 (both entries) and K4 on ``cuda:1``
+    tensors from a thread whose current card is ``cuda:0`` (a tiles-mesh
+    worker thread starts on card 0) equal their plain versions."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: launches on cuda:1 from a "
+                    "thread whose current card is cuda:0")
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = torch.device("cuda", 1)
+
+    def same(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return all(g.device == dev and torch.equal(g, w)
+                   for g, w in zip(got, want))
+
+    def run():
+        torch.cuda.set_device(0)
+        out = {}
+        ext, owned = SIGS["ragged"]
+        args = _lorenzo_units_inputs(3, ext, 5, dev, seed=1)
+        out["K1 units"] = same(k1.lorenzo_residual_units(*args, 5, 16, owned),
+                               r1.lorenzo_residual_units(*args, 5, 16, owned))
+        one = tuple(a[0] for a in args)
+        out["K1"] = same(k1.lorenzo_residual(*one, 5, 16, want_x=True),
+                         r1.lorenzo_residual(*one, 5, 16, want_x=True))
+        ur, vr, uo, vo, delta, st, sb, s0, b0, forced = \
+            _verify_units_inputs(3, (5, 34, 40), dev, seed=2)
+        verts = (st[None] + torch.arange(5, device=dev)[:, None, None]
+                 * (34 * 40)).reshape(-1, 3)
+        out["K2 faces"] = same(
+            k2.face_crossed(uo[0].reshape(-1), vo[0].reshape(-1), verts),
+            r2.face_crossed(uo[0].reshape(-1), vo[0].reshape(-1), verts))
+        got_f, want_f = forced.clone(), forced.clone()
+        n_got = k2.verify_faces_units(ur, vr, uo, vo, None, st, sb, s0, b0,
+                                      got_f)
+        n_want = r2.verify_faces_units(ur, vr, uo, vo, None, st, sb, s0, b0,
+                                       want_f)
+        out["K2 units"] = int(n_got) == int(n_want) and same(got_f, want_f)
+        rng = np.random.default_rng(3)
+        B, T, H, W, block = 2, 6, 37, 53, 16
+        res = [torch.as_tensor(rng.integers(-20, 21, (B, T, H, W)),
+                               device=dev) for _ in range(2)]
+        bm = rng.random((B, T, -(-H // block), -(-W // block))) < 0.3
+        flags = bm.reshape(B, T, -1).any(axis=2)
+        flags[:, 0] = False
+        c2 = [predictors.c2_block(r, block).contiguous() for r in res]
+        sl = (block, 0.01, 0.05, 0.035, 2.0, 8)
+        units = (*c2, *res, torch.as_tensor(bm.astype(np.uint8), device=dev),
+                 torch.as_tensor(flags.astype(np.uint8), device=dev), *sl)
+        out["K3 units"] = same(k3.sl_decode_units(*units),
+                               r3.sl_decode_units(*units))
+        field = tuple(a[0].contiguous() for a in units[:6]) + sl
+        out["K3"] = same(k3.sl_decode(*field), r3.sl_decode(*field))
+        xs = [torch.as_tensor(rng.integers(-2 ** 20, 2 ** 20, (3, H, W)),
+                              device=dev) for _ in range(2)]
+        step = (0.01, 0.05, 0.035, 2.0, 8)
+        out["K4"] = same(k3.sl_step_batched(*xs, *step),
+                         r3.sl_step_batched(*xs, *step))
+        torch.cuda.synchronize(dev)
+        return out
+
+    with ThreadPoolExecutor(1) as pool:
+        out = pool.submit(run).result()
+    assert all(out.values()), out

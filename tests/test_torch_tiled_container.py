@@ -13,6 +13,7 @@ blocks.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.core as core
 from repro.core import tiling as r_tiling
@@ -58,6 +59,26 @@ def test_rounds_fire_and_bytes_equal_reference(big, batch_units):
         assert verify["multi"] > 10 and verify["sl_multi"] > 0
     else:
         assert verify["multi"] == 0
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_rounds_fire_tiles_mesh_bytes_equal_reference(monkeypatch, big, k):
+    """The incremental rounds' chunks dealt to k workers (the CPU listed
+    k times as the tiles mesh): the forced sets merge on the caller into
+    the reference's bytes and bad counts."""
+    from repro_torch.parallel import sharding
+
+    u, v, ref, ref_st = big
+    monkeypatch.setattr(sharding, "tiles_devices",
+                        lambda device: [torch.device("cpu")] * k)
+    blob, st = repro_torch.compress_tiled(
+        u, v, repro_torch.CompressionConfig(**KW),
+        repro_torch.TileGrid(*GRID), device="cpu")
+    assert st["verify_rounds"] >= 1
+    assert st["verify_bad_counts"] == ref_st["verify_bad_counts"]
+    assert blob == ref
+    verify = st["chunks"]["units"]["verify"]
+    assert len(verify) == k and min(verify) > 0
 
 
 def test_rounds_fire_decode_equals_monolithic(big):

@@ -93,6 +93,31 @@ def test_port_bytes_equal_reference(field, ref_blobs, name, batch_units):
         assert {k: st["chunks"][stage][k] for k in want} == want
 
 
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("name", ["host", "device", "no-index", "adaptive"])
+def test_tiles_mesh_bytes_equal_reference(monkeypatch, field, ref_blobs,
+                                          name, k):
+    """The units dealt to k workers (the CPU listed k times as the tiles
+    mesh, tests/test_torch_tiles_mesh.py): the reference's bytes, the
+    one-device chunk counts, every worker busy in every stage."""
+    from repro_torch.parallel import sharding
+
+    monkeypatch.setattr(sharding, "tiles_devices",
+                        lambda device: [torch.device("cpu")] * k)
+    blob, st = _port(field, name)
+    assert blob == ref_blobs[name]
+    for stage in ("verify", "emit"):
+        assert {x: st["chunks"][stage][x] for x in ("multi", "single")} \
+            == dict(multi=10, single=8)
+    units = st["chunks"]["units"]
+    assert sum(units["emit"]) == sum(units["derive"]) == st["n_units"] == 32
+    assert sum(units["verify"]) == 32 * (st["verify_rounds"] + 1)
+    assert sum(units["index"]) == (0 if name == "no-index" else 32)
+    assert all(len(n) == k for n in units.values())
+    assert all(min(n) > 0 for s, n in units.items()
+               if s != "index" or name != "no-index")
+
+
 def test_compress_routes_tiling_and_decompress_reads_cptt(field, ref_blobs):
     u, v = field
     cfg = repro_torch.CompressionConfig(tiling=repro_torch.TileGrid(*GRID),
