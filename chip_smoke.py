@@ -198,12 +198,32 @@ Phases (any failure exits non-zero; nothing is caught):
               several cards the same over every card, and compress and
               compress_tiled on cuda:1 == cuda:0's bytes; with one card a
               line says (b) did not run
+4n. steppers -- the JAX package's "pallas" (f32) and "xla" (f64 with
+              XLA's fused multiply-adds) SL steppers, each with its own
+              K3 / K3-units / K4 kernels (sl_decode_pallas, ..._xla):
+              compress -> decompress with backend="pallas", monolithic
+              and tiled (TileGrid(128, 128, 32)), host codec, at the
+              archive field 64x512x512 (H % 8 == 0: the f32 kernels) and
+              the SCF analogue (H = 100: the "xla" kernels, as the
+              reference's "pallas" stepper does there), the launches of
+              every SL wrapper counted over each run (counts set to 0
+              just before, read just after: the variant's kernels
+              launched, no other variant's), the header tag, the bound,
+              FC = 0, tiled decode == monolithic decode; each variant
+              kernel == its plain version bitwise on the inputs those
+              runs gave it (phase 5 times the "numpy" kernel on the
+              same inputs beside it); a backend="pallas" compress of
+              vortex_street(6, 64, 96) and (6, 60, 96) on the card
+              == on the CPU, byte for byte, decoded both ways; the golden
+              "pallas" and "xla" containers of tests/data (written by the
+              JAX package) decoded on the card == the reference's stored
+              decode
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
-              run): equality with its plain version, time, plain time,
-              bound and, where one PyTorch call computes the same
-              function, that call's time
+              run; the stepper variants: phase 4n's runs): equality with
+              its plain version, time, plain time, bound and, where one
+              PyTorch call computes the same function, that call's time
 
 The last lines are a {"kernels": [...]} JSON line, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX
@@ -230,6 +250,7 @@ ROOT = Path(__file__).resolve().parent
 # the dense bf16 tensor-core rate (the LM's matmuls)
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOPS = 34e12
+F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 SIZES = {
@@ -362,6 +383,26 @@ KERNELS = [
 # kernels only the tiled path launches (the monolithic path must not)
 TILED_ONLY = ("lorenzo_residual_units", "verify_faces_units",
               "sl_decode_units", "face_crossed")
+# K3, its unit entry and K4 for the JAX package's "pallas" and "xla"
+# steppers (phase 4n), each variant its own wrapper and count
+STEPPER_KERNELS = [
+    (f"{base}_{variant}", "semilagrange", f"{base}_{variant}",
+     "src/repro_torch/csrc/semilagrange.cu", replaces)
+    for variant in ("pallas", "xla")
+    for base, replaces in (
+        ("sl_decode", "src/repro/kernels/semilagrange/kernel.py:106"),
+        ("sl_step_batched", "src/repro/kernels/semilagrange/kernel.py:128"),
+        ("sl_decode_units", "src/repro/kernels/semilagrange/kernel.py:106"))]
+
+
+def split_variant(name):
+    """(base kernel, stepper variant) of a wrapper's name:
+    ``sl_decode_pallas`` -> ("sl_decode", "pallas"); a name of KERNELS ->
+    (name, "numpy")."""
+    for variant in ("pallas", "xla"):
+        if name.endswith(f"_{variant}"):
+            return name[:-len(variant) - 1], variant
+    return name, "numpy"
 
 
 def say(*parts):
@@ -1131,8 +1172,9 @@ class Recorder:
     the kernel wrappers themselves (and their launch counts) are
     untouched."""
 
-    def __init__(self):
-        self.events = {n: [] for n, *_ in KERNELS}
+    def __init__(self, kernels=KERNELS):
+        self.kernels = kernels
+        self.events = {n: [] for n, *_ in kernels}
         self.inputs = {}
         self.work = {}
         self._saved = {}
@@ -1141,14 +1183,15 @@ class Recorder:
         import importlib
 
         by_mod = {}
-        for name, mod, attr, _, _ in KERNELS:
+        for name, mod, attr, _, _ in self.kernels:
             by_mod.setdefault(mod, []).append((name, attr))
         for mod, entries in by_mod.items():
             ops = importlib.import_module(f"repro_torch.kernels.{mod}.ops")
             self._saved[mod] = (ops, ops.kernel)
-            ops.kernel = types.SimpleNamespace(
-                **{attr: self._wrap(name, getattr(ops.kernel, attr))
-                   for name, attr in entries})
+            ns = types.SimpleNamespace(**vars(ops.kernel))
+            for name, attr in entries:
+                setattr(ns, attr, self._wrap(name, getattr(ops.kernel, attr)))
+            ops.kernel = ns
         return self
 
     def __exit__(self, *exc):
@@ -1260,11 +1303,11 @@ def device_profile(fn):
     return wall, sum(r[1] for r in rows) / 1e3, rows
 
 
-def kernel_rows(rows):
+def kernel_rows(rows, kernels=KERNELS):
     """{wrapper name: (device ms, launches)} of this package's kernels
     among profiler rows (the CUDA function is ``<wrapper>_kernel``)."""
     out = {}
-    for name, _, attr, _, _ in KERNELS:
+    for name, _, attr, _, _ in kernels:
         hits = [(ms, c) for n, ms, c in rows if f"{attr}_kernel(" in n]
         out[name] = (sum(h[0] for h in hits), sum(h[1] for h in hits))
     return out
@@ -1962,6 +2005,163 @@ def phase_tiles(dev, main, tiled_runs):
         say("tiles (b): NOT RUN -- one card visible: the runs over several "
             "cards and the compress on cuda:1 need a second card")
     say(f"tiles: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# phase 4n: the "pallas" and "xla" SL steppers
+# ----------------------------------------------------------------------
+
+# backend="pallas" compresses held against the CPU's bytes: H % 8 == 0
+# (the f32 stepper) and H = 100 (its f64 "xla" path)
+STEPPER_PARITY = [(6, 64, 96), (6, 60, 96)]
+
+
+def stepper_wrappers():
+    """{name: wrapper} of K3, its unit entry and K4 in every stepper
+    variant (the "numpy" ones under their plain names)."""
+    from repro_torch.kernels.semilagrange import kernel as k3
+
+    return {f"{base}{suffix}": getattr(k3, f"{base}{suffix}")
+            for base in ("sl_decode", "sl_step_batched", "sl_decode_units")
+            for suffix in k3.SUFFIX.values()}
+
+
+def stepper_run(dev, u, v, cfg, fns):
+    """One compress -> decompress on the card, the launches of every SL
+    wrapper counted (set to 0 just before each call, read just after)
+    and the variant kernels' largest inputs recorded."""
+    import repro_torch as rt
+
+    with Recorder(STEPPER_KERNELS) as rec:
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        blob, stats = rt.compress(u, v, cfg, device=dev)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc = read_counts(fns)
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        ur, vr = rt.decompress(blob, device=dev)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec = read_counts(fns)
+    return {"blob": blob, "stats": stats, "dec": (ur, vr),
+            "inputs": rec.inputs, "enc_s": enc_s, "dec_s": dec_s,
+            "launches": {n: enc[n] + dec[n] for n in enc},
+            "enc_counts": enc, "dec_counts": dec}
+
+
+def phase_steppers(dev):
+    """Phase 4n (module docstring).  Returns {kernel name: its row's
+    inputs, launches, plain result and plain ms} for phase 5."""
+    import repro_torch as rt
+    from repro_torch.core import encode
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.semilagrange import kernel as k3, ref as r3
+
+    t_phase = time.perf_counter()
+    fns = stepper_wrappers()
+    grid = rt.TileGrid(*SIZES["tile_grid"])
+    rows = {}
+    # archive field first: the f32 kernels; then the SCF analogue, whose
+    # 100 rows send the "pallas" tag to the "xla" kernels
+    for T, H, W in (SIZES["main"][1], SIZES["main"][0]):
+        variant = "pallas" if H % 8 == 0 else "xla"
+        u, v = synthetic.vortex_street(T=T, H=H, W=W)
+        mono = None
+        for tiling in (None, grid):
+            tag = (f"steppers {T}x{H}x{W} backend=pallas "
+                   f"{'tiled' if tiling else 'monolithic'}")
+            cfg = rt.CompressionConfig(backend="pallas", tiling=tiling,
+                                       **scf_meta(T, H, W))
+            run = stepper_run(dev, u, v, cfg, fns)
+            stats, (ur, vr) = run["stats"], run["dec"]
+            if tiling is None:
+                hdr = encode.unpack(run["blob"])[0]
+                assert hdr["sl_backend"] == "pallas", hdr["sl_backend"]
+                check_guarantees(tag, u, v, ur, vr, stats, dev)
+                mono = run
+            else:
+                # the same quantized field: the monolithic run's guarantees
+                assert np.array_equal(ur, mono["dec"][0]) \
+                    and np.array_equal(vr, mono["dec"][1]), \
+                    f"{tag}: tiled decode differs from the monolithic one"
+            n = run["launches"]
+            ran = {k: c for k, c in n.items() if c}
+            want = {f"sl_decode_{variant}", f"sl_step_batched_{variant}"}
+            if tiling is not None:
+                want.add(f"sl_decode_units_{variant}")
+            assert want <= set(ran) \
+                and all(k.endswith(variant) for k in ran), \
+                f"{tag}: SL launches {ran}, expected the {variant} kernels"
+            if tiling is None:
+                rounds = stats["verify_rounds"] + 1
+                assert run["enc_counts"][f"sl_decode_{variant}"] == rounds \
+                    and run["dec_counts"][f"sl_decode_{variant}"] == 1, \
+                    f"{tag}: sl_decode launches {ran}"
+            say(f"{tag}: ratio {stats['ratio']:.4f}, {len(run['blob'])} B, "
+                f"verify rounds {stats['verify_rounds']}; SL launches "
+                f"{json.dumps(ran)} (the {variant} kernels only); encode "
+                f"{run['enc_s']:.3f} s, decode {run['dec_s']:.3f} s (first "
+                f"call, host clock)")
+            for name in want:
+                if name not in rows and name in run["inputs"]:
+                    rows[name] = {"args": run["inputs"][name],
+                                  "launches": n[name]}
+    assert set(rows) == {k for k, *_ in STEPPER_KERNELS}, sorted(rows)
+    # each variant kernel == its plain version on those inputs; the plain
+    # call is timed once (CUDA events) for phase 5
+    for name, row in rows.items():
+        kern = getattr(k3, name)
+        base, variant = split_variant(name)
+        saved = kern.launches
+        got = kern(*row["args"])
+        kern.launches = saved
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = getattr(r3, base)(*row["args"], variant)
+        stop.record()
+        torch.cuda.synchronize()
+        assert same(got, want), f"{name}: kernel != plain on main-path inputs"
+        row.update(want=want, plain_ms=start.elapsed_time(stop))
+        say(f"steppers {name}: kernel == plain, bitwise, on "
+            f"{[tuple(a.shape) for a in row['args'] if torch.is_tensor(a)]}"
+            f" (plain {row['plain_ms']:.1f} ms)")
+    # card bytes == CPU bytes with backend="pallas"
+    for T, H, W in STEPPER_PARITY:
+        u, v = synthetic.vortex_street(T=T, H=H, W=W)
+        cfg = rt.CompressionConfig(backend="pallas", **scf_meta(T, H, W))
+        blob, stats = rt.compress(u, v, cfg, device=dev)
+        cpu_blob, _ = rt.compress(u, v, cfg, device="cpu")
+        assert blob == cpu_blob, f"steppers {T}x{H}x{W}: card != CPU bytes"
+        ur, vr = rt.decompress(blob, device=dev)
+        cu, cv = rt.decompress(blob, device="cpu")
+        assert np.array_equal(ur, cu) and np.array_equal(vr, cv)
+        check_guarantees(f"steppers {T}x{H}x{W} parity", u, v, ur, vr, stats,
+                         dev)
+        say(f"steppers {T}x{H}x{W} backend=pallas: card bytes == CPU bytes "
+            f"({len(blob)} B), decoded on both == each other")
+    # the golden containers the JAX package wrote
+    for name in ("pallas", "xla"):
+        blob = (ROOT / "tests" / "data" / f"golden_sl_{name}.cptl") \
+            .read_bytes()
+        stored = np.load(ROOT / "tests" / "data"
+                         / f"golden_sl_{name}_decode.npz")
+        fn = getattr(k3, f"sl_decode_{name}")
+        saved = fn.launches
+        ur, vr = rt.decompress(blob, device=dev)
+        assert fn.launches == saved + 1, f"golden {name}: not through K3"
+        fn.launches = saved
+        assert np.array_equal(ur.view(np.uint32),
+                              stored["ur"].view(np.uint32)) \
+            and np.array_equal(vr.view(np.uint32),
+                               stored["vr"].view(np.uint32)), \
+            f"golden {name}: card decode != the reference's decode"
+        say(f"steppers golden {name} {ur.shape}: card decode == the JAX "
+            f"package's stored decode, bitwise")
+    say(f"steppers: phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3455,8 +3655,11 @@ def decode_sl_pixels(args, out):
 
 
 def bound_terms(name, args, out):
-    """(bytes, f64 operations) the function needs on these inputs: each
-    input read once, each output written once."""
+    """(bytes, f64 or f32 operations) the function needs on these inputs:
+    each input read once, each output written once.  A stepper variant
+    (phase 4n) has its base kernel's terms: the same int64 planes in and
+    out, the same operations in its real type."""
+    name = split_variant(name)[0]
     if name == "lorenzo_residual":
         # ufp, vfp, k, lossless read; res_u, res_v (and xu, xv with
         # want_x) written
@@ -3561,19 +3764,30 @@ def library_call(name, args):
     return lambda: torch.bincount(keys, minlength=B * 256)
 
 
-def phase_table(main, tiled_run):
+def phase_table(main, tiled_run, steppers, kernels=None):
+    """Phase 5 over ``kernels`` (default: KERNELS and STEPPER_KERNELS).
+    ``steppers``: phase 4n's rows (inputs, launches, the plain result and
+    its once-timed ms: the plain f32 / FMA-emulating decode is too slow
+    to repeat within the time limit)."""
     mods = modules()
-    mono = next(r for r in main
-                if r["shape"] == SIZES["main"][0] and r["codec"] == "device")
+    kernels = KERNELS + STEPPER_KERNELS if kernels is None else kernels
+    mono = None if main is None else next(
+        r for r in main
+        if r["shape"] == SIZES["main"][0] and r["codec"] == "device")
     rows = []
-    for name, mod, attr, src, replaces in KERNELS:
+    for name, mod, attr, src, replaces in kernels:
         kmod, rmod = mods[mod]
+        pre = steppers.get(name)
         run = tiled_run if name in TILED_ONLY else mono
-        args = run["inputs"][name]
+        args = run["inputs"][name] if pre is None else pre["args"]
+        launches = run["launches"][name] if pre is None else pre["launches"]
         kern = getattr(kmod, attr)
-        plain = getattr(rmod, attr)
+        # a stepper variant's plain result and time come with its row
+        plain = getattr(rmod, attr) if pre is None else None
         saved = kern.launches
-        if name in ("verify_faces", "verify_faces_units"):
+        if pre is not None:
+            got, want = kern(*args), pre["want"]
+        elif name in ("verify_faces", "verify_faces_units"):
             # forced is updated in place: each version gets its own copy,
             # and the mask is compared beside the count
             *rest, forced = args
@@ -3586,35 +3800,48 @@ def phase_table(main, tiled_run):
         assert same(got, want), f"{name}: kernel != plain on main-path inputs"
         err = max_abs_err(got, want)
         call_ms = time_ms(lambda: kern(*args), 50)
-        plain_ms = time_ms(lambda: plain(*args), 5)
+        plain_ms = time_ms(lambda: plain(*args), 5) if pre is None \
+            else pre["plain_ms"]
         lib = library_call(name, args)
         if lib is not None:
             assert same(lib().reshape(want.shape).to(want.dtype), want)
         library_ms = time_ms(lib, 50) if lib is not None else None
         _, _, prof_rows = device_profile(
             lambda: [kern(*args) for _ in range(50)])
-        dev_ms, n = kernel_rows(prof_rows)[name]
+        dev_ms, n = kernel_rows(prof_rows, [(name, mod, attr, src,
+                                             replaces)])[name]
         # the kernel's own device time; the event-timed call time where
         # the profiler sees no device activity
         ms = dev_ms / n if n else call_ms
         kern.launches = saved
         nbytes, ops = bound_terms(name, args, want)
+        base, variant = split_variant(name)
+        f32 = variant == "pallas"
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F64_FLOPS * 1e3
+        t_ops = ops / (F32_FLOPS if f32 else F64_FLOPS) * 1e3
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         how = (f"device, {n} profiled launches" if n
                else "per call: the profiler saw no device time")
         lib_txt = (f", library call {library_ms:.5f} ms"
                    if library_ms is not None else "")
-        if name == "sl_decode":
+        if pre is not None:
+            # the f64 "numpy" kernel on the same inputs, for the variant's
+            # cost (its integers differ)
+            k_base = getattr(kmod, base)
+            saved_base = k_base.launches
+            lib_txt += (f", the numpy kernel on the same inputs "
+                        f"{time_ms(lambda: k_base(*args), 50):.5f} ms per "
+                        f"call")
+            k_base.launches = saved_base
+        if base == "sl_decode":
             flags = args[5]
             xu, xv = decode_sl_pixels(args, want)
             lib_txt += (f", {int(flags[1:].sum())} grid barriers of "
                         f"{kern.grid} CTAs, {xu.numel()} SL pixels ("
                         f"{sl_branches(xu, xv, *args[7:])})")
-        if name == "sl_step_batched":
+        if base == "sl_step_batched":
             lib_txt += f" ({sl_branches(*args)})"
-        if name == "sl_decode_units":
+        if base == "sl_decode_units":
             lib_txt += (f", {int(args[5][:, 1:].any(0).sum())} grid barriers "
                         f"of {kern.grid} CTAs, units {args[0].shape[0]}")
         if name in ("verify_faces", "verify_faces_units"):
@@ -3625,14 +3852,16 @@ def phase_table(main, tiled_run):
             lib_txt += (f", {n_faces} faces, {n_sel} selected "
                         f"({'screen' if args[4] is None else 'delta'}), "
                         f"{int(want)} bad")
+        plain_how = "5 calls" if pre is None else "one call"
         say(f"table {name}: main-path inputs {shapes}, kernel {ms:.5f} ms "
             f"({how}), {call_ms:.5f} ms per call "
             f"(CUDA events over 50 calls), plain {plain_ms:.5f} ms per "
-            f"call{lib_txt}, bound {max(t_bytes, t_ops):.6f} ms "
-            f"({nbytes} B, {ops:.0f} f64 ops), launches {run['launches'][name]}")
+            f"call ({plain_how}){lib_txt}, bound "
+            f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B, {ops:.0f} "
+            f"{'f32' if f32 else 'f64'} ops), launches {launches}")
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": run["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -3676,12 +3905,13 @@ def main() -> int:
         phase_recovery(dev, stream_blob, tiled_runs)
         phase_query(dev, tiled_runs)
         phase_autotune(dev, main_runs)
+        steppers = phase_steppers(dev)
     phase_serve(dev)
     phase_train(dev)
     phase_dryrun(dev)
     phase_shard(dev)
     phase_tiles(dev, main_runs, tiled_runs)
-    rows = phase_table(main_runs, tiled_run)
+    rows = phase_table(main_runs, tiled_run, steppers)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi_line())

@@ -9,8 +9,9 @@ The discrete space is the cross product of
 
 plus the monolithic (untiled) candidate when the input is in memory.
 It is the JAX package's space restricted to one backend: here the
-device of the call fixes what runs, so a candidate has no backend and
-``apply`` leaves ``cfg.backend`` at None.  Every candidate is ranked by
+device of the call fixes what runs, so a candidate has no backend, and
+``apply`` passes ``cfg.backend`` (the SL stepper, byte-changing) through
+unchanged.  Every candidate is ranked by
 the analytic cost model (costmodel.py, optionally calibrated from obs
 spans); ``search`` can then measure-verify the top-k on the actual
 field so a mispriced model never silently picks a slow plan.  Ties on
@@ -185,7 +186,7 @@ def search(shape, model: Optional[costmodel.CostModel] = None,
 
 def apply(cfg, cand: PlanCandidate):
     """A new CompressionConfig realizing ``cand`` (cfg untouched).
-    ``cfg.backend`` stays None and ``cfg.eb_policy`` passes through: the
+    ``cfg.backend`` (the SL stepper) and ``cfg.eb_policy`` pass through: the
     candidate's ``eb_policy`` records the policy the tune ran under, not
     a knob the search may move."""
     grid = None

@@ -3,20 +3,32 @@
 The tensor's device picks the implementation: on a CUDA tensor each op
 launches its hand-written Hopper kernel (``repro_torch/kernels``), on a
 CPU tensor it runs the kernel's plain PyTorch version.  There is no
-backend name and no fallback between the two.
+fallback between the two.
 
 Determinism contract:
 
 * the integer ops (Lorenzo residual, SoS predicate and the verify round
   built on it, symbol histogram) are exact and equal on every device;
-* the SL stepper is f64 with every operation rounded once, in the op
-  order of the JAX package's numpy stepper: kernel and plain version are
-  bitwise equal to that stepper, so the header records
-  ``sl_backend: "numpy"`` and the JAX package replays the same
-  predictions when it decodes a port container.  The decode (K3) and
-  batched (K4) kernels share one device function, so decoding a field
-  in one launch and predicting the encoder's T-1 frames in one batched
-  call change no integer.
+* the SL stepper is one of the JAX package's three, named by the
+  container header's ``sl_backend`` (``SL_BACKENDS``; core/predictors.py
+  has their arithmetic): "numpy" (f64, every operation rounded once, in
+  the op order of its numpy stepper; what this package writes unless
+  told otherwise), "xla" (f64 with XLA:CPU's fused multiply-adds; what
+  the JAX package writes off the TPU) and "pallas" (f32, the Pallas
+  kernel's body under interpret mode; what it writes on a TPU, and its
+  f64 "xla" path where the plane's rows are not a multiple of the
+  kernel's 8-row tile).  Kernel and plain version of each are bitwise
+  equal to the JAX package's stepper as it runs on the CPU, so a
+  container decodes to the same integers in both packages whichever
+  wrote it.  The decode (K3) and batched (K4) kernels share one device
+  function, so decoding a field in one launch and predicting the
+  encoder's T-1 frames in one batched call change no integer.
+
+A container written by a real TPU used the TPU's compiled arithmetic
+for "pallas", which no machine without a TPU reproduces (the JAX
+package's own consistency there is structural: one executable encodes
+and decodes); what the port holds is the JAX package as it runs on the
+CPU, where the tests run.
 
 The ``*_units`` ops take a stack of same-signature tile units (the
 tiled pipeline, core/tiling.py) and launch one kernel for the whole
@@ -30,15 +42,44 @@ import numpy as np
 import torch
 
 from . import predictors
+from .. import perfflags
 from ..kernels.cptest import ops as _cp_ops
 from ..kernels.entropy import ops as _ent_ops
 from ..kernels.lorenzo import ops as _lz_ops
 from ..kernels.semilagrange import ops as _sl_ops
 
-# the header tag of the SL stepper this package runs (see module doc)
+# the SL steppers (header tags) this package writes and decodes
+SL_BACKENDS = predictors.SL_VARIANTS
+# the tag a compress writes when neither CompressionConfig.backend nor
+# REPRO_BACKEND names one
 SL_BACKEND = "numpy"
-# f64 steppers whose containers this package decodes with its own
-SL_DECODABLE = ("numpy", "xla")
+# the Pallas kernel's row tile: the JAX package's "pallas" stepper runs
+# its f64 "xla" path on planes whose rows are not a multiple of it
+# (src/repro/core/backend.py::sl_stepper)
+PALLAS_TILE_H = 8
+
+
+def resolve(name=None) -> str:
+    """A compress's SL stepper and header tag: ``name``
+    (``CompressionConfig.backend``), else ``REPRO_BACKEND``, else
+    ``SL_BACKEND``.  Raises ValueError for a name not in
+    ``SL_BACKENDS``."""
+    name = name or perfflags.backend_override() or SL_BACKEND
+    if name not in SL_BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; expected one of "
+                         f"{SL_BACKENDS} (the SL stepper and its header "
+                         "tag) or None")
+    return name
+
+
+def sl_variant(tag: str, H: int) -> str:
+    """The stepper that replays header tag ``tag`` on planes of H rows
+    (module doc): the tag itself, but "xla" for "pallas" where H is not
+    a multiple of ``PALLAS_TILE_H``."""
+    if tag not in SL_BACKENDS:
+        raise ValueError(f"unknown SL stepper {tag!r}; expected one of "
+                         f"{SL_BACKENDS}")
+    return "xla" if tag == "pallas" and H % PALLAS_TILE_H else tag
 
 
 def lorenzo_residual(ufp, vfp, k, lossless, xi_unit: int, block: int,
@@ -56,10 +97,11 @@ def lorenzo_residual(ufp, vfp, k, lossless, xi_unit: int, block: int,
 
 
 def sl_decode(res_u, res_v, blockmap, block: int, g2f: float, cfl_x: float,
-              cfl_y: float, d_max: float, n_max: int):
+              cfl_y: float, d_max: float, n_max: int, tag: str = SL_BACKEND):
     """Parallel-in-time decode of the verify simulation and of
     decompress: (T, H, W) int64 residuals and the HOST bool blockmap
-    (T, nbi, nbj) -> the base-grid integers (xu, xv).  A field with no SL
+    (T, nbi, nbj) -> the base-grid integers (xu, xv), the SL blocks
+    stepped with the stepper of header tag ``tag``.  A field with no SL
     block past frame 0 is one prefix sum over time; any other goes to one
     ``sl_decode`` call (one kernel launch on CUDA), with the blockmap and
     the per-frame flags copied to the device once."""
@@ -77,17 +119,18 @@ def sl_decode(res_u, res_v, blockmap, block: int, g2f: float, cfl_x: float,
         res_v.contiguous(),
         torch.as_tensor(bm.astype(np.uint8), device=dev).contiguous(),
         torch.as_tensor(flags.astype(np.uint8), device=dev), block, g2f,
-        cfl_x, cfl_y, d_max, n_max)
+        cfl_x, cfl_y, d_max, n_max, sl_variant(tag, res_u.shape[-2]))
 
 
 def sl_predictions(xu, xv, g2f: float, cfl_x: float, cfl_y: float,
-                   d_max: float, n_max: int):
+                   d_max: float, n_max: int, tag: str = SL_BACKEND):
     """Encoder-side predictions of frames 1..T-1 from frames 0..T-2 of the
-    known (T, H, W) fields, in one batched stepper call.  Returns
-    (T-1, H, W) int64 stacks."""
+    known (T, H, W) fields, in one batched call of the stepper of header
+    tag ``tag``.  Returns (T-1, H, W) int64 stacks."""
     return _sl_ops.sl_step_batched(xu[:-1].contiguous(),
                                    xv[:-1].contiguous(), g2f, cfl_x, cfl_y,
-                                   d_max, n_max)
+                                   d_max, n_max,
+                                   sl_variant(tag, xu.shape[-2]))
 
 
 def verify_faces(ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab, slice0,
@@ -130,7 +173,7 @@ def lorenzo_residual_units(ufp, vfp, k, lossless, xi_unit: int, block: int,
 
 
 def sl_predictions_units(xu, xv, g2f: float, cfl_x: float, cfl_y: float,
-                         d_max: float, n_max: int):
+                         d_max: float, n_max: int, tag: str = SL_BACKEND):
     """Encoder-side predictions of frames 1..T-1 of B (B, T, H, W) units,
     all B (T-1) frames in one stepper call (K4).  Returns (B, T-1, H, W)
     int64 stacks."""
@@ -138,12 +181,13 @@ def sl_predictions_units(xu, xv, g2f: float, cfl_x: float, cfl_y: float,
     pu, pv = _sl_ops.sl_step_batched(
         xu[:, :-1].reshape(B * (T - 1), H, W).contiguous(),
         xv[:, :-1].reshape(B * (T - 1), H, W).contiguous(), g2f, cfl_x,
-        cfl_y, d_max, n_max)
+        cfl_y, d_max, n_max, sl_variant(tag, H))
     return pu.reshape(B, T - 1, H, W), pv.reshape(B, T - 1, H, W)
 
 
 def sl_decode_units(res_u, res_v, blockmaps, block: int, g2f: float,
-                    cfl_x: float, cfl_y: float, d_max: float, n_max: int):
+                    cfl_x: float, cfl_y: float, d_max: float, n_max: int,
+                    tag: str = SL_BACKEND):
     """``sl_decode`` of B (B, T, H, W) units with their HOST blockmaps
     (B, T, nbi, nbj): one prefix sum over time when no unit has an SL
     block past its frame 0, else one ``sl_decode_units`` call (one
@@ -162,7 +206,7 @@ def sl_decode_units(res_u, res_v, blockmaps, block: int, g2f: float,
         res_v.contiguous(),
         torch.as_tensor(bm.astype(np.uint8), device=dev).contiguous(),
         torch.as_tensor(flags.astype(np.uint8), device=dev).contiguous(),
-        block, g2f, cfl_x, cfl_y, d_max, n_max)
+        block, g2f, cfl_x, cfl_y, d_max, n_max, sl_variant(tag, H))
 
 
 def verify_faces_units(ur_fp, vr_fp, ufp, vfp, delta, slice_tab, slab_tab,

@@ -7,9 +7,17 @@ Public API:
 
 Both run on the CUDA device unless the caller passes ``device="cpu"``;
 with no CUDA device and ``device=None`` they raise RuntimeError.  The
-container is the JAX package's monolithic format (version 2, header
-``sl_backend: "numpy"``), byte-equal to what the JAX package writes with
-its numpy SL stepper for the same field and config.
+container is the JAX package's monolithic format (version 2), byte-equal
+to what the JAX package writes with the same backend for the same field
+and config.  ``backend`` takes the JAX package's names, which here name
+the SL stepper and the header's ``sl_backend`` tag (core/backend.py):
+None (or ``REPRO_BACKEND`` unset) writes "numpy", "xla" and "pallas"
+run the JAX package's steppers of those names on whatever device the
+tensors are on, and "numpy" given by name also keeps to the plain
+versions on the CPU (as ``REPRO_BACKEND=numpy``).  ``decompress`` replays
+the stepper its container names, so it reads what the JAX package writes
+with any backend off the TPU (a "pallas" container written on a TPU
+holds that TPU's arithmetic, which no other machine reproduces).
 
 ``codec="device"`` entropy-codes the residuals on the device and writes
 the JAX package's CPTH1 container, byte-equal to its ``codec="device"``
@@ -34,9 +42,9 @@ ratio with the trajectory-covering units kept at ``eb``
 
 ``CompressionConfig`` keeps the JAX package's fields and defaults.  The
 legacy ``fused=False`` binding (or ``REPRO_FUSED=0``) raises
-NotImplementedError naming its ROADMAP item; ``backend`` must stay None
-(the device picks kernel or plain version; ``REPRO_BACKEND=numpy`` refuses
-CUDA tensors and leaves the plain versions on the CPU, ``perfflags``).
+NotImplementedError naming its ROADMAP item.  The device picks kernel or
+plain version; ``backend="numpy"`` and ``REPRO_BACKEND=numpy`` refuse
+CUDA tensors and leave the plain versions on the CPU (``perfflags``).
 """
 from __future__ import annotations
 
@@ -47,7 +55,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import ebpolicy, encode, fixedpoint, pipeline, predictors, quantize
+from . import (backend, ebpolicy, encode, fixedpoint, pipeline, predictors,
+               quantize)
 from .. import perfflags
 
 FORMAT_VERSION = pipeline.FORMAT_VERSION
@@ -69,7 +78,7 @@ class CompressionConfig:
     zstd_level: int = 12
     verify: bool = True
     max_rounds: int = 12
-    backend: Optional[str] = None     # must be None: the device decides
+    backend: Optional[str] = None     # SL stepper: None | numpy | xla | pallas
     fused: Optional[bool] = None      # None / True: the fused pipeline
     tiling: Optional[object] = None   # a tiling.TileGrid: tiled container
     track_index: bool = True          # tiled only
@@ -100,23 +109,29 @@ def resolve_device(device=None) -> torch.device:
 
 def refuse_unported(cfg: CompressionConfig):
     """Raise for the config options this package does not run."""
-    if cfg.backend is not None:
-        raise ValueError(
-            f"backend={cfg.backend!r}: repro_torch has no backend names; "
-            "the tensor's device picks the kernel (CUDA) or its plain "
-            "version (CPU) -- leave backend=None")
-    # REPRO_FUSED=0 asks for the legacy binding as fused=False does;
-    # REPRO_BACKEND names a backend the port may not have
+    # an unknown backend name (in the config or REPRO_BACKEND) raises
+    backend.resolve(cfg.backend)
+    # REPRO_FUSED=0 asks for the legacy binding as fused=False does
     fused = perfflags.fused_default() if cfg.fused is None else cfg.fused
     if fused is False:
         raise NotImplementedError(
             "the legacy fused=False binding (or REPRO_FUSED=0) is not ported "
             "to repro_torch (ROADMAP Queue 1 item 4: it exists only for A/B "
             "timing)")
-    perfflags.backend_override()
     if cfg.codec not in ("host", "device"):
         raise ValueError(f"unknown codec {cfg.codec!r}; expected 'host' "
                          "or 'device'")
+
+
+def refuse_plain_on_card(cfg: CompressionConfig, dev: torch.device):
+    """``backend="numpy"`` asks for the plain versions, which run on the
+    CPU only (as ``REPRO_BACKEND=numpy`` does): raise for a CUDA
+    device."""
+    if cfg.backend == "numpy" and dev.type == "cuda":
+        raise ValueError(
+            'backend="numpy" asks for the plain versions of the kernels, '
+            'which run on the CPU only; pass device="cpu", or leave '
+            "backend=None for the kernels on CUDA (the same bytes)")
 
 
 def _as_fields(u, v):
@@ -161,6 +176,7 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
         from . import tiling
         return tiling.compress_tiled(u, v, cfg, cfg.tiling, device=device)
     dev = resolve_device(device)
+    refuse_plain_on_card(cfg, dev)
     t0 = time.perf_counter()
     u, v = _as_fields(u, v)
     pol = ebpolicy.normalize(cfg.eb_policy)

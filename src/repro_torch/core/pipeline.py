@@ -8,10 +8,10 @@ Every stage runs on the device of the tensors it is given (the caller's
 ``device``): on CUDA the hot ops launch their kernels through
 core/backend.py, on the CPU they run the plain versions.  Integer stages
 are exact int64, the reconstruction and pointwise checks are elementwise
-IEEE f64, the SL decode and stepper are the f64 ones of backend.py and
-the MoP rate model runs on the host (mop.py), so the container bytes do not
-depend on the device and equal the JAX package's for the same plan with
-its numpy SL stepper.
+IEEE f64, the SL decode and stepper are the plan's (``sl_backend``, the
+JAX package's stepper of that name: backend.py) and the MoP rate model
+runs on the host (mop.py), so the container bytes do not depend on the
+device and equal the JAX package's for the same plan and backend.
 
 The plan's ``codec`` picks the symbolize + pack stage: ``"host"``
 fetches the residuals and writes a CPTZ1 / CPTL1 container
@@ -87,7 +87,8 @@ class PipelinePlan:
 def plan_from_cfg(cfg, scale: float, eb_abs: float,
                   name: str = "fused") -> PipelinePlan:
     """Plan from a CompressionConfig + the field-derived stream params;
-    ``name`` is the container's pipeline tag ("fused" | "tiled")."""
+    ``name`` is the container's pipeline tag ("fused" | "tiled"), the SL
+    stepper the config's backend (``backend.resolve``)."""
     tau = max(int(np.floor(eb_abs * scale)), 0)
     xi_unit, n_usable = quantize.ladder(tau, cfg.n_levels)
     return PipelinePlan(
@@ -107,6 +108,7 @@ def plan_from_cfg(cfg, scale: float, eb_abs: float,
         zstd_level=cfg.zstd_level,
         verify=cfg.verify,
         max_rounds=cfg.max_rounds,
+        sl_backend=backend.resolve(cfg.backend),
         codec=cfg.codec,
         eb_policy=ebpolicy.policy_spec(ebpolicy.normalize(cfg.eb_policy)),
         batch_units=bool(cfg.batch_units),
@@ -115,20 +117,23 @@ def plan_from_cfg(cfg, scale: float, eb_abs: float,
 
 def plan_from_header(header: dict) -> PipelinePlan:
     """Decode-side plan of a monolithic container or of a tiled footer
-    (whose unit frames carry their own codec).  Containers of the f64
-    steppers ("numpy", "xla") decode with this package's f64 stepper;
-    the f32 TPU stepper ("pallas") is not ported and is refused."""
+    (whose unit frames carry their own codec).  The header's
+    ``sl_backend`` names the SL stepper the decode replays: "numpy",
+    "xla" or "pallas" (``backend.SL_BACKENDS``), each bitwise equal to
+    the JAX package's stepper of that name as it runs on the CPU; any
+    other tag is refused.  A "pallas" container written on a TPU holds
+    that TPU's f32 arithmetic, which no other machine reproduces
+    (core/backend.py)."""
     name = header.get("pipeline", "legacy")
     if name not in ("fused", "tiled"):
         raise NotImplementedError(
             f"{name!r} pipeline containers are not ported to repro_torch "
             "yet (ROADMAP Queue 1 item 4: the legacy binding)")
     tag = header.get("sl_backend")
-    if tag not in backend.SL_DECODABLE:
+    if tag not in backend.SL_BACKENDS:
         raise ValueError(
             f"container SL stepper {tag!r} cannot be replayed by "
-            f"repro_torch (decodes {backend.SL_DECODABLE}): 'pallas' is "
-            "the f32 TPU stepper, which is not ported")
+            f"repro_torch (decodes {backend.SL_BACKENDS})")
     codec = header.get("codec")
     if name == "fused" and codec not in ("zstd", "zlib", "huffman"):
         raise encode.ContainerError(
@@ -196,7 +201,7 @@ class PlanExecutor:
 
     def _sl_args(self):
         p = self.plan
-        return (p.g2f, p.cfl_x, p.cfl_y, p.d_max, p.n_max)
+        return (p.g2f, p.cfl_x, p.cfl_y, p.d_max, p.n_max, p.sl_backend)
 
     # ---- one tile unit (the whole-field kernel entries) ----------------
 
@@ -393,7 +398,7 @@ def decode_payload(ex: PlanExecutor, shape, sections):
             f"{list(shape)} in {p.block}-blocks")
     xu, xv = backend.sl_decode(
         torch.as_tensor(res_u, device=dev), torch.as_tensor(res_v, device=dev),
-        bm, p.block, p.g2f, p.cfl_x, p.cfl_y, p.d_max, p.n_max)
+        bm, p.block, *ex._sl_args())
     n_ll = int(ll.sum())
     u_raw = np.zeros(shape, dtype=np.float32)
     v_raw = np.zeros(shape, dtype=np.float32)
@@ -448,8 +453,7 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
     if p.predictor == "sl":
         xu = quantize.dual_quantize(ufp, k, lossless, p.xi_unit)
         xv = quantize.dual_quantize(vfp, k, lossless, p.xi_unit)
-        pu, pv = backend.sl_predictions(xu, xv, ex.g2f, p.cfl_x, p.cfl_y,
-                                        p.d_max, p.n_max)
+        pu, pv = backend.sl_predictions(xu, xv, *ex._sl_args())
         res_u = torch.cat([predictors.d2_block(xu[:1], p.block), xu[1:] - pu])
         res_v = torch.cat([predictors.d2_block(xv[:1], p.block), xv[1:] - pv])
         bm = np.ones(nb, dtype=bool)
@@ -459,8 +463,7 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
     # fields the SL predictions start from
     res3_u, res3_v, xu, xv = backend.lorenzo_residual(
         ufp, vfp, k, lossless, p.xi_unit, p.block, want_x=True)
-    pu, pv = backend.sl_predictions(xu, xv, ex.g2f, p.cfl_x, p.cfl_y,
-                                    p.d_max, p.n_max)
+    pu, pv = backend.sl_predictions(xu, xv, *ex._sl_args())
     zero = torch.zeros_like(xu[:1])
     ressl_u = torch.cat([zero, xu[1:] - pu])
     ressl_v = torch.cat([zero, xv[1:] - pv])
@@ -536,9 +539,8 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
         if not p.verify:
             break
         with obs.span("pipeline.verify_round", round=rounds) as vs:
-            xu_d, xv_d = backend.sl_decode(res_u, res_v, bm, p.block, p.g2f,
-                                           p.cfl_x, p.cfl_y, p.d_max,
-                                           p.n_max)
+            xu_d, xv_d = backend.sl_decode(res_u, res_v, bm, p.block,
+                                           *ex._sl_args())
             new_extra, n_bad = _verify_round(
                 ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d, vfp_d,
                 u_d, v_d, xu_d, xv_d, lossless, lossless_extra, bound)
@@ -559,7 +561,7 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
 
 def field_header(plan: PipelinePlan, shape) -> dict:
     """The JAX package's ``pipeline.field_header`` for a fused plan, with
-    this package's SL stepper tag.  The key order fixes the bytes."""
+    the plan's SL stepper tag.  The key order fixes the bytes."""
     T, H, W = shape
     header = {
         # the version moves only with a policy: uniform containers stay

@@ -63,7 +63,7 @@ import zlib
 
 import numpy as np
 
-from . import _msgpack, ebpolicy, encode, tiling
+from . import _msgpack, backend, ebpolicy, encode, tiling
 from . import faults as faults_mod
 from .. import obs
 
@@ -244,6 +244,9 @@ def _fingerprint(cfg, grid, value_range, H, W) -> dict:
     # spec explicitly (_fp_equal's msgpack round trip normalizes tuples)
     fp["eb_policy"] = ebpolicy.policy_spec(
         ebpolicy.normalize(getattr(cfg, "eb_policy", None)))
+    # the SL stepper is byte-changing and may come from REPRO_BACKEND
+    # rather than cfg.backend: record the one this run writes
+    fp["backend"] = backend.resolve(cfg.backend)
     fp["grid"] = dataclasses.asdict(grid)
     fp["value_range"] = [float(value_range[0]), float(value_range[1])]
     fp["H"], fp["W"] = int(H), int(W)

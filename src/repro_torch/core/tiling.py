@@ -997,6 +997,7 @@ def compress_tiled(u, v, cfg=None, grid: Optional[TileGrid] = None,
         raise TypeError(f"tiling must be a TileGrid, got {grid!r}")
     grid.validate()
     dev = compressor.resolve_device(device)
+    compressor.refuse_plain_on_card(cfg, dev)
     t_start = time.perf_counter()
     with obs.span("tiling.compress_tiled", codec=None) as sp:
         st, windows, T = _prepare(u, v, cfg, grid, sink, dev)
@@ -1075,6 +1076,7 @@ def compress_stream(pairs, cfg=None, grid: Optional[TileGrid] = None,
         raise TypeError(f"tiling must be a TileGrid, got {grid!r}")
     grid.validate()
     dev = compressor.resolve_device(device)
+    compressor.refuse_plain_on_card(cfg, dev)
     from . import stream_engine
 
     if value_range is None:

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of K3 and K4: the f64 stepper of
-core/predictors.py (a literal transcription of the JAX package's numpy
-stepper), per frame and over a (B, H, W) stack, and the decode of a
-whole field that steps it frame by frame.  Any device."""
+"""Plain PyTorch versions of K3 and K4: the steppers of
+core/predictors.py (the JAX package's three, ``SL_VARIANTS``), per frame
+and over a (B, H, W) stack, and the decode of a whole field that steps
+one frame by frame.  Any device.  Each takes the variant as its last
+argument."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,9 +13,10 @@ from ...parallel import sharding
 
 
 def sl_step(xu_prev: torch.Tensor, xv_prev: torch.Tensor, g2f: float,
-            cfl_x: float, cfl_y: float, d_max: float, n_max: int):
+            cfl_x: float, cfl_y: float, d_max: float, n_max: int,
+            variant: str = "numpy"):
     return predictors.sl_predict_frame(xu_prev, xv_prev, g2f, cfl_x, cfl_y,
-                                       d_max, n_max)
+                                       d_max, n_max, variant)
 
 
 # the plain stepper takes a (B, H, W) stack as it is
@@ -24,7 +26,7 @@ sl_step_batched = sl_step
 def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
               res_v: torch.Tensor, blockmap: torch.Tensor, flags: torch.Tensor,
               block: int, g2f: float, cfl_x: float, cfl_y: float,
-              d_max: float, n_max: int):
+              d_max: float, n_max: int, variant: str = "numpy"):
     """x_0 = c2[0]; for t >= 1, x_t = res[t] + SL(x_{t-1}) on the pixels
     of the SL blocks of a flagged frame, x_{t-1} + c2[t] elsewhere.  The
     JAX decoder's frame loop: runs of frames with no SL step are one
@@ -53,7 +55,8 @@ def sl_decode(c2u: torch.Tensor, c2v: torch.Tensor, res_u: torch.Tensor,
             us.append(seg_u)
             vs.append(seg_v)
             prev_u, prev_v = seg_u[-1], seg_v[-1]
-        pu, pv = sl_step(prev_u, prev_v, g2f, cfl_x, cfl_y, d_max, n_max)
+        pu, pv = sl_step(prev_u, prev_v, g2f, cfl_x, cfl_y, d_max, n_max,
+                         variant)
         xu_t = torch.where(mask[t], res_u[t] + pu, prev_u + c2u[t])
         xv_t = torch.where(mask[t], res_v[t] + pv, prev_v + c2v[t])
         us.append(xu_t[None])
@@ -70,10 +73,11 @@ def sl_decode_units(c2u: torch.Tensor, c2v: torch.Tensor,
                     res_u: torch.Tensor, res_v: torch.Tensor,
                     blockmap: torch.Tensor, flags: torch.Tensor, block: int,
                     g2f: float, cfl_x: float, cfl_y: float, d_max: float,
-                    n_max: int):
+                    n_max: int, variant: str = "numpy"):
     """``sl_decode`` per unit of (B, ...) stacks, stacked."""
     def one(a, b, c, d, bm, fl):
         return sl_decode(a, b, c, d, bm, fl, block, g2f, cfl_x, cfl_y,
-                         d_max, n_max)
+                         d_max, n_max, variant)
 
     return sharding.map_tiles(one, c2u, c2v, res_u, res_v, blockmap, flags)
+

@@ -19,8 +19,12 @@ models carry, where the JAX package does:
       an f32 copy of the activations and weights)
 
 ``REPRO_FUSED=0`` asks ``compress`` for the legacy binding, which the port
-refuses; ``REPRO_BACKEND=numpy`` allows only the plain versions (CPU);
-``REPRO_JIT_CACHE`` moves the directory of the built kernel libraries.
+refuses; ``REPRO_BACKEND`` names the SL stepper a compress runs and
+writes in its header when ``CompressionConfig.backend`` names none
+(``numpy``, ``xla`` or ``pallas``, the JAX package's backend names:
+core/backend.py), and ``numpy`` also allows only the plain versions
+(CPU); ``REPRO_JIT_CACHE`` moves the directory of the built kernel
+libraries.
 """
 from __future__ import annotations
 
@@ -33,26 +37,23 @@ from torch.utils.checkpoint import checkpoint
 BASELINE = os.environ.get("REPRO_PERF_BASELINE", "") == "1"
 
 # REPRO_BACKEND values: "" -> the hand-written kernels on CUDA, the plain
-# versions on the CPU; "numpy" -> the JAX package's host reference, which
-# in the port is device="cpu": the plain versions on the CPU, and a CUDA
-# tensor is refused; the rest name TPU / XLA paths the port does not have
+# versions on the CPU, the default SL stepper; "numpy" -> the JAX
+# package's host reference, which in the port is device="cpu": the plain
+# versions on the CPU, a CUDA tensor refused, and the numpy SL stepper;
+# "xla" and "pallas" -> the JAX package's SL steppers of those names, on
+# whatever device the tensors are on
 _PLAIN = "numpy"
-_UNPORTED = ("pallas", "xla")
+_BACKENDS = ("numpy", "xla", "pallas")
 
 
 def backend_override():
     """``REPRO_BACKEND`` (None when unset or empty).  Raises ValueError
-    for a backend the port does not have."""
+    for a name the JAX package has no backend of."""
     name = os.environ.get("REPRO_BACKEND", "") or None
-    if name is None or name == _PLAIN:
+    if name is None or name in _BACKENDS:
         return name
-    if name in _UNPORTED:
-        raise ValueError(
-            f"REPRO_BACKEND={name}: a TPU / XLA path with no counterpart in "
-            f"repro_torch; leave it unset (the hand-written kernels) or set "
-            f"it to {_PLAIN!r} (their plain PyTorch versions)")
     raise ValueError(f"REPRO_BACKEND={name}: unknown backend; expected "
-                     f"unset or {_PLAIN!r}")
+                     f"unset or one of {_BACKENDS}")
 
 
 def plain_kernels() -> bool:

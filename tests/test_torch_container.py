@@ -136,14 +136,21 @@ def test_damaged_containers_raise(ref_blob):
 
 
 def test_refuses_unported_container_kinds(ref_blob):
+    """Every SL stepper tag the JAX package writes decodes ("pallas"
+    replays its stepper, here the f64 "xla" path of a 12-row field, as
+    the reference's decode does); any other tag, a newer version, a
+    malformed header and the legacy pipeline are refused."""
     import repro_torch
 
     header, sections = _header_and_sections(ref_blob)
     header.pop("codec")
-    for tag, exc in (("pallas", ValueError), ("bogus", ValueError)):
-        doctored = r_encode.pack(dict(header, sl_backend=tag), sections)
-        with pytest.raises(exc, match="stepper"):
-            repro_torch.decompress(doctored, device="cpu")
+    doctored = r_encode.pack(dict(header, sl_backend="pallas"), sections)
+    for a, b in zip(repro_torch.decompress(doctored, device="cpu"),
+                    core.decompress(doctored)):
+        assert np.array_equal(a, b)
+    doctored = r_encode.pack(dict(header, sl_backend="bogus"), sections)
+    with pytest.raises(ValueError, match="stepper"):
+        repro_torch.decompress(doctored, device="cpu")
     doctored = r_encode.pack(dict(header, version=99), sections)
     with pytest.raises(ValueError, match="version 99"):
         repro_torch.decompress(doctored, device="cpu")

@@ -123,7 +123,8 @@ def test_stream_and_read_entry_points_need_cuda(no_cuda, field):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(backend="numpy"), ValueError, "backend"),
+    # the JAX package's backend names run (tests/test_torch_sl_steppers.py)
+    (dict(backend="cuda"), ValueError, "backend"),
     (dict(tiling=repro_torch.TileGrid(halo=0)), ValueError, "halo"),
     (dict(codec="device", tiling=repro_torch.TileGrid(thalo=0)), ValueError,
      "thalo"),
@@ -136,6 +137,28 @@ def test_unported_config_refused(field, kw, exc, match):
     with pytest.raises(exc, match=match):
         repro_torch.compress(u, v, repro_torch.CompressionConfig(**kw),
                              device="cpu")
+
+
+def test_backend_names_select_the_sl_stepper(field):
+    """The JAX package's backend names run: each writes its tag, None and
+    "numpy" the same bytes; "numpy" keeps to the plain versions on the
+    CPU, so it refuses a CUDA device (as REPRO_BACKEND=numpy does)."""
+    from repro_torch.core import compressor, encode
+
+    u, v = field
+    default = repro_torch.compress(u, v, device="cpu")[0]
+    for name in ("numpy", "xla", "pallas"):
+        cfg = repro_torch.CompressionConfig(backend=name)
+        blob, _ = repro_torch.compress(u, v, cfg, device="cpu")
+        assert encode.unpack(blob)[0]["sl_backend"] == name
+        assert (blob == default) == (name == "numpy")
+        compressor.refuse_plain_on_card(cfg, torch.device("cpu"))
+    with pytest.raises(ValueError, match='device="cpu"'):
+        compressor.refuse_plain_on_card(
+            repro_torch.CompressionConfig(backend="numpy"),
+            torch.device("cuda"))
+    compressor.refuse_plain_on_card(repro_torch.CompressionConfig(),
+                                    torch.device("cuda"))
 
 
 def test_streaming_and_degraded_reads_refused(field):

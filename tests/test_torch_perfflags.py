@@ -4,7 +4,9 @@ of a SMOKE step equal the reference's baseline step, within PERF.md
 section 2's LM bounds, and the chunk bodies are no longer recomputed),
 ``REPRO_FUSED=0`` (refused like ``fused=False``), ``REPRO_BACKEND``
 (``numpy``: the plain versions of the kernels on the CPU, CUDA tensors
-refused; ``pallas`` / ``xla`` refused) and ``REPRO_JIT_CACHE`` (the kernel build directory)."""
+refused; ``pallas`` / ``xla``: the JAX package's SL steppers of those
+names and their header tag; any other name refused) and
+``REPRO_JIT_CACHE`` (the kernel build directory)."""
 from pathlib import Path
 
 import jax
@@ -152,13 +154,34 @@ def test_backend_numpy_selects_the_plain_versions(monkeypatch, field):
 
 @pytest.mark.parametrize("name", ["pallas", "xla", "cuda"])
 def test_backend_without_counterpart_is_refused(monkeypatch, field, name):
+    """``pallas`` and ``xla`` select the JAX package's SL steppers of
+    those names: the container's header carries the tag, an explicit
+    ``CompressionConfig.backend`` wins over the environment, and the
+    kernels stay on (a CPU tensor takes the plain version).  ``cuda``,
+    a name the JAX package has no backend of, is refused."""
+    from repro_torch.core import encode
+
     u, v = field
     monkeypatch.setenv("REPRO_BACKEND", name)
     assert JP.backend_override() == name
-    with pytest.raises(ValueError, match=f"REPRO_BACKEND={name}"):
-        repro_torch.compress(u, v, device="cpu")
-    with pytest.raises(ValueError, match=f"REPRO_BACKEND={name}"):
-        use_kernel(torch.zeros(1), "op")
+    if name == "cuda":
+        with pytest.raises(ValueError, match=f"REPRO_BACKEND={name}"):
+            repro_torch.compress(u, v, device="cpu")
+        with pytest.raises(ValueError, match=f"REPRO_BACKEND={name}"):
+            use_kernel(torch.zeros(1), "op")
+        return
+    assert TP.backend_override() == name and not TP.plain_kernels()
+    assert not use_kernel(torch.zeros(1), "op")
+    blob, _ = repro_torch.compress(u, v, device="cpu")
+    assert encode.unpack(blob)[0]["sl_backend"] == name
+    explicit, _ = repro_torch.compress(
+        u, v, repro_torch.CompressionConfig(backend=name), device="cpu")
+    assert explicit == blob
+    numpy_blob, _ = repro_torch.compress(
+        u, v, repro_torch.CompressionConfig(backend="numpy"), device="cpu")
+    assert encode.unpack(numpy_blob)[0]["sl_backend"] == "numpy"
+    monkeypatch.delenv("REPRO_BACKEND")
+    assert repro_torch.compress(u, v, device="cpu")[0] == numpy_blob
 
 
 def test_jit_cache_moves_the_build_directory(monkeypatch, tmp_path):

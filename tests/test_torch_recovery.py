@@ -254,6 +254,39 @@ def test_resume_refuses_mismatched_config(field, tmp_path):
                 resume=True)
 
 
+@pytest.mark.parametrize("resume_env,resume_backend,refused", [
+    (None, None, True), ("pallas", None, True), (None, "xla", False)])
+def test_resume_fingerprints_the_sl_stepper(field, tmp_path, monkeypatch,
+                                            resume_env, resume_backend,
+                                            refused):
+    """A run written with REPRO_BACKEND=xla resumes only under the same
+    stepper: from the variable or from CompressionConfig.backend, and then
+    finishes an uninterrupted "xla" run's bytes."""
+    _, _, pairs, vr = field
+    p = tmp_path / "sl.cptt"
+    monkeypatch.setenv("REPRO_BACKEND", "xla")
+    with pytest.raises(InjectedFault):
+        _stream(iter(pairs), value_range=vr, sink=str(p),
+                faults=FaultPlan().io_error("stream.compute", nth=14))
+    if resume_env is None:
+        monkeypatch.delenv("REPRO_BACKEND")
+    else:
+        monkeypatch.setenv("REPRO_BACKEND", resume_env)
+    cfg = repro_torch.CompressionConfig(track_index=True,
+                                        backend=resume_backend)
+    if refused:
+        with pytest.raises(stream_engine.ResumeError):
+            _stream(iter(pairs), cfg, value_range=vr, sink=str(p),
+                    resume=True)
+        return
+    _, st = _stream(iter(pairs), cfg, value_range=vr, sink=str(p),
+                    resume=True)
+    assert st["resumed_from"] > 0
+    want, _ = _stream(iter(pairs), cfg, value_range=vr)
+    assert p.read_bytes() == want
+    assert encode.tiled_header(want)["sl_backend"] == "xla"
+
+
 def test_journal_records_round_trip(tmp_path):
     """Journal records hold bytes, nested lists and ints above 2^32."""
     jp = str(tmp_path / "j.journal")

@@ -11,7 +11,9 @@ the SCF analogue (vortex_street 120x100x225, default config), in the
 order there and back.  Every copy must return the production kernel's
 integers bit for bit.  ``--parent`` adds an older source with the same
 ``sl_step_batched`` entry point as a K4 baseline, ``--k3-baseline`` an
-older source with the same ``sl_decode`` entry point as a K3 baseline.
+older source with the same ``sl_decode`` entry point as a K3 baseline
+(the entry points that take the stepper variant, which is the f64
+"numpy" one here).
 Then it splits the
 production ``sl_decode``'s time on the same inputs: all frames with no
 flag (no barrier, no SL step: each thread's prefix sum in registers),
@@ -45,6 +47,8 @@ OUT = _build.BUILD_DIR.parent / "sl_sweep"
 K4_SHAPES = [(32, 16, 4), (32, 32, 4), (16, 16, 4), (16, 32, 4), (8, 32, 4),
              (32, 16, 8)]
 DEC_HALOS = [4, 6, 8, 12]
+# the entry points' code of the f64 "numpy" stepper, the main path's
+NUMPY = 0
 
 
 def variant(th, tw, k4_halo, dec_halo) -> str:
@@ -118,7 +122,7 @@ def k4_call(lib, args):
     xu, xv, g2f, cx, cy, d_max, n_max = args
     f = lib.sl_step_batched
     f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     f.restype = ctypes.c_int
     pu, pv = torch.empty_like(xu), torch.empty_like(xv)
     stream = _build.stream_ptr(xu.device)
@@ -126,7 +130,7 @@ def k4_call(lib, args):
     def run():
         _build.check(f(xu.data_ptr(), xv.data_ptr(), pu.data_ptr(),
                        pv.data_ptr(), *xu.shape, g2f, cx, cy, d_max, n_max,
-                       stream), "sl_step_batched")
+                       NUMPY, stream), "sl_step_batched")
     return run, (pu, pv)
 
 
@@ -134,7 +138,8 @@ def k3_call(lib, args):
     c2u, c2v, ru, rv, bm, flags, block, g2f, cx, cy, d_max, n_max = args
     f = lib.sl_decode
     f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_double] * 4 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int),
                                 ctypes.c_void_p]
     f.restype = ctypes.c_int
     xu, xv = torch.empty_like(c2u), torch.empty_like(c2v)
@@ -145,7 +150,8 @@ def k3_call(lib, args):
         _build.check(f(c2u.data_ptr(), c2v.data_ptr(), ru.data_ptr(),
                        rv.data_ptr(), bm.data_ptr(), flags.data_ptr(),
                        xu.data_ptr(), xv.data_ptr(), *c2u.shape, block, g2f,
-                       cx, cy, d_max, n_max, ctypes.byref(grid), stream),
+                       cx, cy, d_max, n_max, NUMPY, ctypes.byref(grid),
+                       stream),
                      "sl_decode")
     return run, (xu, xv)
 
