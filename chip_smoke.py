@@ -84,8 +84,8 @@ Phases (any failure exits non-zero; nothing is caught):
               device-codec stream of T = 128 (resident frames at the
               bound, peak device memory within 5 % of the 64-frame run)
 4f. recovery -- at the SCF analogue a fresh interpreter SIGKILLs itself
-              before a mid-stream frame and before the last frame, on
-              each engine, once a checkpoint is durable (the async
+              before a mid-stream frame, on each engine, once a
+              checkpoint is durable (the async
               writer commits it after the ingest has read ahead);
               resume=True splices and finishes the uninterrupted bytes;
               the 64x512x512 stream container cut before its footer
@@ -218,6 +218,24 @@ Phases (any failure exits non-zero; nothing is caught):
               "pallas" and "xla" containers of tests/data (written by the
               JAX package) decoded on the card == the reference's stored
               decode
+4o. legacy -- the legacy (seed) binding (fused=False): compress ->
+              decompress of the SCF analogue with each codec, the
+              launches of every kernel wrapper counted over each run
+              (counts set to 0 just before, read just after: K1 none,
+              sl_step_batched_xla once and sl_decode_xla once a verify
+              round plus one sl_decode_xla a decompress, face_crossed at
+              least once a round, verify_faces none, no other stepper
+              variant), the "legacy" header with no sl_backend, the
+              bound, FC = 0, its encode seconds beside the fused
+              encode's of the same config; each of those kernels == its
+              plain version on the inputs the runs gave it; a
+              fused=False compress of the tests' legacy fields on the
+              card == on the CPU, byte for byte, decoded both ways; the
+              golden legacy containers of tests/data decoded on the card
+              with backend None, "xla" and "pallas" == the JAX package's
+              stored decode, and the golden "xla" / "pallas" containers
+              decoded with backend "xla" and "pallas" == the reference's
+              stored decode with that backend
 5. table   -- each kernel on the inputs its path gave it (the monolithic
               kernels: device codec, SCF analogue; the unit-batched
               entries and face_crossed: the tiled 64x512x512 device-codec
@@ -288,11 +306,13 @@ SIZES = {
     "tile_grid": (128, 128, 32),
     # streamed runs (the tiled phase's archive field) and the longer
     # stream's length (four windows: the steady state's 97 resident
-    # frames); the recovery children's kill points (frames) at the SCF
-    # analogue: mid-stream and before the last frame
+    # frames); the recovery children's kill point (frame) at the SCF
+    # analogue: mid-stream (a kill before the last frame, frame 119,
+    # resumed from the same checkpoint, frame 31, and cost 16-20 s more a
+    # child on an NVIDIA H100 80GB HBM3 at 700 W, so the script keeps one)
     "stream": (64, 512, 512),
     "stream_long": 128,
-    "kill_at": (100, 119),
+    "kill_at": (100,),
     # autotune / rate / baseline parity on the card and the CPU
     "parity_autotune": (6, 32, 32),
     # the rate search's target at full width, in units of the uniform ratio
@@ -2165,6 +2185,159 @@ def phase_steppers(dev):
 
 
 # ----------------------------------------------------------------------
+# phase 4o: the legacy (seed) binding and the decode-side backend=
+# ----------------------------------------------------------------------
+
+# the legacy cases of tests/test_torch_legacy*.py: (T, H, W) -> (n_max,
+# predictor, codec); the vortex street with noise of their fields
+LEGACY_PARITY = {(6, 32, 40): (8, "sl", "host"),
+                 (6, 30, 40): (32, "mop", "device")}
+# the kernels the legacy path launches (phase 4o compares each with its
+# plain version on the inputs the SCF runs gave it)
+LEGACY_KERNELS = [k for k in KERNELS + STEPPER_KERNELS
+                  if k[0] in ("sl_step_batched_xla", "sl_decode_xla",
+                              "face_crossed", "symbol_histogram")]
+
+
+def legacy_field(shape):
+    from repro_torch.data import synthetic
+
+    T, H, W = shape
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    rng = np.random.default_rng(H)
+    return tuple((np.asarray(a) + 2.0 * rng.standard_normal(shape))
+                 .astype(np.float32) for a in (u, v))
+
+
+def stored_decode(name):
+    d = np.load(ROOT / "tests" / "data" / name)
+    return d["ur"], d["vr"]
+
+
+def same_bits(a, b) -> bool:
+    return all(np.array_equal(x.view(np.uint32), y.view(np.uint32))
+               for x, y in zip(a, b))
+
+
+def phase_legacy(dev):
+    """Phase 4o (module docstring)."""
+    import repro_torch as rt
+    from repro_torch.core import encode
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.cptest import ref as r2
+    from repro_torch.kernels.entropy import ref as r5
+    from repro_torch.kernels.semilagrange import ref as r3
+
+    t_phase = time.perf_counter()
+    fns = dict(wrappers(), **stepper_wrappers())
+    T, H, W = SIZES["main"][0]
+    u, v = synthetic.vortex_street(T=T, H=H, W=W)
+    inputs = {}
+    for codec in ("host", "device"):
+        tag = f"legacy {T}x{H}x{W} codec={codec}"
+        cfg = rt.CompressionConfig(fused=False, codec=codec,
+                                   **scf_meta(T, H, W))
+        with Recorder(LEGACY_KERNELS) as rec:
+            reset_counts(fns)
+            t0 = time.perf_counter()
+            blob, stats = rt.compress(u, v, cfg, device=dev)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            enc = read_counts(fns)
+            reset_counts(fns)
+            t0 = time.perf_counter()
+            ur, vr = rt.decompress(blob, device=dev)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            dec = read_counts(fns)
+        for name, args in rec.inputs.items():
+            inputs.setdefault(name, args)
+        hdr = encode.unpack(blob)[0]
+        assert hdr["pipeline"] == "legacy" and "sl_backend" not in hdr, hdr
+        assert stats["pipeline"] == "legacy"
+        check_guarantees(tag, u, v, ur, vr, stats, dev)
+        rounds = stats["verify_rounds"] + 1
+        ran = {k: enc[k] + dec[k] for k in enc if enc[k] + dec[k]}
+        assert enc["lorenzo_residual"] == dec["lorenzo_residual"] == 0, ran
+        assert enc["sl_step_batched_xla"] == rounds, ran
+        assert enc["sl_decode_xla"] == rounds and dec["sl_decode_xla"] == 1, \
+            ran
+        assert enc["face_crossed"] >= rounds and enc["verify_faces"] == 0, \
+            ran
+        assert (enc["symbol_histogram"] >= 1) == (codec == "device"), ran
+        assert all(k.endswith("_xla") for k in ran if k.startswith("sl_")), \
+            f"{tag}: SL launches {ran}, expected the xla kernels only"
+        # the fused compress of the same config, for its seconds
+        t0 = time.perf_counter()
+        fused_blob, _ = rt.compress(u, v, dataclasses.replace(
+            cfg, fused=True), device=dev)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        assert encode.unpack(fused_blob)[0]["pipeline"] == "fused"
+        say(f"{tag}: ratio {stats['ratio']:.4f}, {len(blob)} B, verify "
+            f"rounds {stats['verify_rounds']}, bad counts "
+            f"{stats['verify_bad_counts']}; launches {json.dumps(ran)} (K1 "
+            f"0, the xla SL kernels only); encode {enc_s:.3f} s against "
+            f"the fused encode's {fused_s:.3f} s ({enc_s / fused_s:.3f} x), "
+            f"decode {dec_s:.3f} s (host clock)")
+    # each kernel == its plain version on the inputs those runs gave it
+    plain = {"sl_step_batched_xla": lambda *a: r3.sl_step_batched(*a, "xla"),
+             "sl_decode_xla": lambda *a: r3.sl_decode(*a, "xla"),
+             "face_crossed": r2.face_crossed,
+             "symbol_histogram": r5.symbol_histogram}
+    assert set(inputs) == set(plain), sorted(inputs)
+    for name, args in inputs.items():
+        fn = fns[name]
+        saved = fn.launches
+        got = fn(*args)
+        fn.launches = saved
+        assert same(got, plain[name](*args)), \
+            f"legacy {name}: kernel != plain on the legacy path's inputs"
+        say(f"legacy {name}: kernel == plain, bitwise, on "
+            f"{[tuple(a.shape) for a in args if torch.is_tensor(a)]}")
+    # card bytes == CPU bytes on the tests' fields
+    for shape, (n_max, predictor, codec) in LEGACY_PARITY.items():
+        u, v = legacy_field(shape)
+        cfg = rt.CompressionConfig(eb=1e-2, dt=40.0, n_max=n_max,
+                                   predictor=predictor, codec=codec,
+                                   fused=False)
+        blob, stats = rt.compress(u, v, cfg, device=dev)
+        assert blob == rt.compress(u, v, cfg, device="cpu")[0], \
+            f"legacy {shape}: card != CPU bytes"
+        dec = rt.decompress(blob, device=dev)
+        assert same_bits(dec, rt.decompress(blob, device="cpu"))
+        check_guarantees(f"legacy {shape} parity", u, v, *dec, stats, dev)
+        say(f"legacy {shape} {predictor} codec={codec}: card bytes == CPU "
+            f"bytes ({len(blob)} B), decoded on both == each other")
+    # the golden legacy containers with every backend= the card runs, and
+    # the golden "xla" / "pallas" containers with each of those backends
+    data = ROOT / "tests" / "data"
+    for name in ("golden_legacy_sl.cptl", "golden_legacy_mop.cpth"):
+        blob = (data / name).read_bytes()
+        want = stored_decode(name.split(".")[0] + "_decode.npz")
+        for backend in (None, "xla", "pallas"):
+            reset_counts(fns)
+            got = rt.decompress(blob, backend, device=dev)
+            assert fns["sl_decode_xla"].launches == 1, read_counts(fns)
+            assert same_bits(got, want), \
+                f"{name} backend={backend}: card != the reference's decode"
+        say(f"legacy {name}: card decode with backend None / xla / pallas "
+            f"== the JAX package's stored decode, bitwise, through "
+            f"sl_decode_xla")
+    for tag in ("xla", "pallas"):
+        blob = (data / f"golden_sl_{tag}.cptl").read_bytes()
+        for backend in ("xla", "pallas"):
+            got = rt.decompress(blob, backend, device=dev)
+            want = stored_decode(f"golden_sl_{tag}_decode_{backend}.npz")
+            assert same_bits(got, want), \
+                f"golden {tag} backend={backend}: card != the reference's"
+        say(f"legacy golden_sl_{tag}: card decode with backend xla / "
+            f"pallas == the JAX package's stored decode of each, bitwise")
+    reset_counts(fns)
+    say(f"legacy: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
 # phase 4e: streaming compression at full width
 # ----------------------------------------------------------------------
 
@@ -2393,8 +2566,8 @@ rt.compress_stream(frames(), rt.CompressionConfig(
 
 def phase_recovery(dev, stream_blob, tiled_runs):
     """Kill-and-resume on the card at the SCF analogue: a fresh
-    interpreter SIGKILLs itself before a mid-stream frame and before the
-    last frame, on each engine, and resume=True finishes the
+    interpreter SIGKILLs itself before a mid-stream frame, on each
+    engine, and resume=True finishes the
     uninterrupted bytes; salvage of the 64x512x512 stream container cut
     before its footer recovers every unit; a degraded decode of a copy
     with one unit's byte flipped reports exactly that unit."""
@@ -3906,6 +4079,7 @@ def main() -> int:
         phase_query(dev, tiled_runs)
         phase_autotune(dev, main_runs)
         steppers = phase_steppers(dev)
+        phase_legacy(dev)
     phase_serve(dev)
     phase_train(dev)
     phase_dryrun(dev)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import backend, compressor, grid, sos, trajectory
+from ..core import backend as backend_mod, compressor, grid, sos, \
+    trajectory
 from . import classify as classify_mod
 from . import model
 
@@ -51,15 +52,20 @@ def dense_track_ids(face_ids, labels):
     return remap[labels]
 
 
-def extract(ufp, vfp, device=None, tables=None, classify=True,
-            spiral_tol=classify_mod.DEFAULT_SPIRAL_TOL):
+def extract(ufp, vfp, backend=None, tables=None, classify=True,
+            spiral_tol=classify_mod.DEFAULT_SPIRAL_TOL, *, device=None):
     """Full geometric extraction -> model.TrajectorySet.
 
     ufp, vfp: (T, H, W) int64 fixed-point fields.  ``tables`` reuses
     precomputed face-predicate tables.  The predicates and the component
     labeling run on ``device`` (the CUDA device unless ``device="cpu"``);
-    positions and types are host float64, op for op the reference's."""
+    positions and types are host float64, op for op the reference's.
+    ``backend`` is the JAX package's (a backend name, checked as a
+    compress's; "numpy" refuses a CUDA device): every step is exact, so
+    no name changes the result."""
     dev = compressor.resolve_device(device)
+    backend_mod.resolve(backend)
+    compressor.refuse_plain_on_card(backend, dev)
     ufp = np.asarray(ufp)
     vfp = np.asarray(vfp)
     T, H, W = ufp.shape
@@ -80,7 +86,7 @@ def extract(ufp, vfp, device=None, tables=None, classify=True,
     # the sparse crossing nodes, face ids ascending
     face_ids, edges = np.unique(edges_fid, return_inverse=True)
     edges = edges.reshape(-1, 2).astype(np.int64)
-    labels = backend.connected_labels(
+    labels = backend_mod.connected_labels(
         len(face_ids), torch.as_tensor(edges, device=dev)).cpu().numpy()
     track_of = dense_track_ids(face_ids, labels)
 

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core import backend, compressor, encode, fixedpoint
+from ..core import backend as backend_mod, compressor, encode, fixedpoint
 from ..core import faults as faults_mod
 from . import classify as classify_mod
 from . import extraction, model
@@ -217,12 +217,14 @@ class ContainerSource:
 class UnitCache:
     """Byte-bounded LRU of decoded unit patches.
 
-    Keyed by ``(container_id, unit_off)``; values are the decoded
-    float32 ``(box, u_rec, v_rec)`` host numpy patches, which every read
-    path (region decode, track decode) derives its output from -- unit
-    decode is deterministic and bit-identical on every device, so a
-    cached patch is exactly what a fresh decode would produce, and the
-    cache holds no device memory.  Bounded
+    Keyed by ``(container_id, unit_off, SL stepper)``; values are the
+    decoded float32 ``(box, u_rec, v_rec)`` host numpy patches, which
+    every read path (region decode, track decode) derives its output
+    from -- unit decode is deterministic and bit-identical on every
+    device, so a cached patch is exactly what a fresh decode with that
+    stepper would produce (the steppers part on clamped substeps, so a
+    decode's ``backend=`` is part of the key), and the cache holds no
+    device memory.  Bounded
     by total payload bytes, not entry count, so one capacity knob works
     for any tile geometry.  Thread-safe: served reads may overlap.
     """
@@ -328,10 +330,11 @@ def fetch_decoded_units(source: ContainerSource, ex, entries: list,
     SKIPPED -- the patch list then holds only the surviving units, in
     entry order.  Without it, the first damaged unit raises."""
     cid = source.container_id
+    tag = ex.plan.sl_backend
     out = {}
     missing = []
     for e in entries:
-        got = unit_cache.get((cid, e["off"]))
+        got = unit_cache.get((cid, e["off"], tag))
         if got is None:
             missing.append(e)
         else:
@@ -353,7 +356,7 @@ def fetch_decoded_units(source: ContainerSource, ex, entries: list,
                 failures.append((e, exc))
                 continue
             val = (tuple(uh["box"]), u_rec, v_rec)
-            unit_cache.put((cid, e["off"]), val)
+            unit_cache.put((cid, e["off"], tag), val)
             out[e["off"]] = val
     return [out[e["off"]] for e in entries if e["off"] in out], n_hits
 
@@ -520,8 +523,8 @@ def _segment_survivors(seg_cell, missing_boxes, shape):
     return ~bad.any(axis=1)
 
 
-def decode_for_track(src, track_id: int, device=None,
-                     degraded: bool = False) -> TrackDecode:
+def decode_for_track(src, track_id: int, backend=None,
+                     degraded: bool = False, *, device=None) -> TrackDecode:
     """Decode ONLY the units covering ``track_id`` and rebuild its
     polyline exactly (bit-identical to full-decode extraction).  Unit
     decode goes through the shared pipeline executor -- the same
@@ -536,17 +539,21 @@ def decode_for_track(src, track_id: int, device=None,
     build_tracks path, so each piece is exact on the points it keeps).
     Structural damage -- an unreadable footer -- still raises; run
     ``encode.salvage_container`` first for that.
+
+    ``backend`` names the SL stepper of the unit decodes in place of the
+    footer's (``core.tiling.decompress_tiled``).
     """
     from ..core import pipeline as pipeline_mod
 
     dev = compressor.resolve_device(device)
+    compressor.refuse_plain_on_card(backend, dev)
     source, hdr, idx = load_track_index(src)
     with obs.span("query.decode_for_track",
                   track_id=int(track_id)) as sp, source:
         idx._check(track_id)
         T, H, W = hdr["shape"]
         entries = _cover_entries(hdr, idx, track_id)
-        ex = pipeline_mod.executor_from_header(hdr, dev)
+        ex = pipeline_mod.executor_from_header(hdr, dev, backend)
         failures = [] if degraded else None
         decoded, n_hits = fetch_decoded_units(source, ex, entries,
                                               failures=failures)
@@ -601,7 +608,7 @@ def decode_for_track(src, track_id: int, device=None,
                 **acct)
         # dropped segments can split the survivors into several
         # connected pieces; label them and assemble each one
-        labels = backend.connected_labels(
+        labels = backend_mod.connected_labels(
             len(node_fid), torch.as_tensor(local_edges)).numpy()
         track_of = extraction.dense_track_ids(node_fid, labels)
         pieces = model.build_tracks(pos, node_fid, types,

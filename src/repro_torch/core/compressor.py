@@ -40,11 +40,17 @@ unless ``track_index=False``); ``decompress`` reads it too.
 ratio with the trajectory-covering units kept at ``eb``
 (autotune/rate.py).
 
-``CompressionConfig`` keeps the JAX package's fields and defaults.  The
-legacy ``fused=False`` binding (or ``REPRO_FUSED=0``) raises
-NotImplementedError naming its ROADMAP item.  The device picks kernel or
-plain version; ``backend="numpy"`` and ``REPRO_BACKEND=numpy`` refuse
-CUDA tensors and leave the plain versions on the CPU (``perfflags``).
+``CompressionConfig`` keeps the JAX package's fields and defaults.
+``fused=False`` (or ``REPRO_FUSED=0`` with ``fused=None``) runs the
+legacy (seed) binding (core/pipeline.py: unfused quantize and predict,
+every face re-checked each verify round, the "xla" SL stepper whatever
+``backend`` says) and writes the JAX package's ``"pipeline": "legacy"``
+container; the tiled and streamed entries ignore ``fused``, as the JAX
+package's do.  ``decompress(blob, backend)`` decodes with the SL
+stepper ``backend`` names in place of the header's (a legacy container
+always with "xla").  The device picks kernel or plain version;
+``backend="numpy"`` and ``REPRO_BACKEND=numpy`` refuse CUDA tensors and
+leave the plain versions on the CPU (``perfflags``).
 """
 from __future__ import annotations
 
@@ -108,26 +114,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 def refuse_unported(cfg: CompressionConfig):
-    """Raise for the config options this package does not run."""
+    """Raise for config values this package does not know."""
     # an unknown backend name (in the config or REPRO_BACKEND) raises
     backend.resolve(cfg.backend)
-    # REPRO_FUSED=0 asks for the legacy binding as fused=False does
-    fused = perfflags.fused_default() if cfg.fused is None else cfg.fused
-    if fused is False:
-        raise NotImplementedError(
-            "the legacy fused=False binding (or REPRO_FUSED=0) is not ported "
-            "to repro_torch (ROADMAP Queue 1 item 4: it exists only for A/B "
-            "timing)")
     if cfg.codec not in ("host", "device"):
         raise ValueError(f"unknown codec {cfg.codec!r}; expected 'host' "
                          "or 'device'")
 
 
-def refuse_plain_on_card(cfg: CompressionConfig, dev: torch.device):
+def refuse_plain_on_card(cfg, dev: torch.device):
     """``backend="numpy"`` asks for the plain versions, which run on the
-    CPU only (as ``REPRO_BACKEND=numpy`` does): raise for a CUDA
-    device."""
-    if cfg.backend == "numpy" and dev.type == "cuda":
+    CPU only (as ``REPRO_BACKEND=numpy`` does): raise for a CUDA device.
+    ``cfg``: a CompressionConfig, or a decode entry's ``backend=``."""
+    name = cfg if cfg is None or isinstance(cfg, str) else cfg.backend
+    if name == "numpy" and dev.type == "cuda":
         raise ValueError(
             'backend="numpy" asks for the plain versions of the kernels, '
             'which run on the CPU only; pass device="cpu", or leave '
@@ -186,8 +186,9 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
     eb_abs = float(cfg.eb if pol is None else ebpolicy.max_bound(pol)) \
         * factor
     scale, ufp, vfp = fixedpoint.to_fixed(u, v, cfg.fixed_bits)
-    ex = pipeline.PlanExecutor(pipeline.plan_from_cfg(cfg, scale, eb_abs),
-                               dev)
+    fused = perfflags.fused_default() if cfg.fused is None else cfg.fused
+    ex = pipeline.PlanExecutor(pipeline.plan_from_cfg(
+        cfg, scale, eb_abs, "fused" if fused else "legacy"), dev)
     if pol is None:
         enc = pipeline.compress_field(ex, u, v, ufp, vfp)
     else:
@@ -198,12 +199,16 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
     return pipeline.pack_field(ex, u, v, enc, t0)
 
 
-def decompress(blob: bytes, *, device=None):
-    """Container bytes -> (u, v) float32 numpy arrays (T, H, W)."""
+def decompress(blob: bytes, backend: Optional[str] = None, *, device=None):
+    """Container bytes -> (u, v) float32 numpy arrays (T, H, W).
+    ``backend`` names the SL stepper of the decode in place of the
+    header's ("numpy", "xla" or "pallas"; a legacy container ignores
+    it)."""
     if encode.is_tiled(blob):
         from . import tiling
-        return tiling.decompress_tiled(blob, device=device)
+        return tiling.decompress_tiled(blob, backend=backend, device=device)
     dev = resolve_device(device)
+    refuse_plain_on_card(backend, dev)
     header, sections = encode.unpack(blob)
     version = header.get("version", 1)
     if not isinstance(version, int) \
@@ -211,5 +216,5 @@ def decompress(blob: bytes, *, device=None):
         raise ValueError(
             f"container format version {version} is newer than this "
             f"decoder (supports <= {pipeline.FORMAT_VERSION_ADAPTIVE})")
-    ex = pipeline.PlanExecutor(pipeline.plan_from_header(header), dev)
+    ex = pipeline.executor_from_header(header, dev, backend)
     return pipeline.decode_field_blob(ex, header, sections)

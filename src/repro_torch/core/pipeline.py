@@ -31,8 +31,15 @@ exact integer work or elementwise f64, the MoP rate model takes each
 tile's histogram alone, and the SL stepper is one device function, so
 a unit's streams are the same bytes either way and for any batch size.
 
-The legacy (``fused=False``) binding is refused (ROADMAP Queue 1 item
-4).
+The legacy (seed) plan (``fused=False`` or ``REPRO_FUSED=0``: the JAX
+package's ``LEGACY_BINDINGS``) unfuses the quantize and predict stages
+(``quantize.dual_quantize`` and ``predictors.lorenzo_encode`` as torch
+ops, no K1), re-evaluates every face's predicate in each verify round
+(``ebound.all_face_predicates``, K2 ``face_crossed`` on CUDA) and steps
+SL with the "xla" stepper on every plane height; its container is
+tagged ``"pipeline": "legacy"`` with no ``sl_backend``.  The JAX
+package decodes it with a sequential scan over frames, which the
+parallel decode with the "xla" stepper reproduces bitwise.
 """
 from __future__ import annotations
 
@@ -50,6 +57,15 @@ FORMAT_VERSION = 2
 # the adaptive (per-tile policy) monolithic container; its decode path
 # is the uniform one
 FORMAT_VERSION_ADAPTIVE = 3
+
+# stage bindings, the JAX package's (stage, variant) pairs; a plan's
+# ``bindings`` pick the encode, decode and verify implementations below
+FUSED_BINDINGS = (("encode", "fused"), ("decode", "parallel"),
+                  ("verify", "screened"))
+LEGACY_BINDINGS = (("encode", "legacy"), ("decode", "scan"),
+                   ("verify", "full"))
+# the SL stepper of the legacy plan, on every plane height
+LEGACY_SL_BACKEND = "xla"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,19 +94,25 @@ class PipelinePlan:
     # None for the uniform bound; it moves the container to version 3
     eb_policy: object = None
     batch_units: bool = True         # tiled: stack same-signature units
+    bindings: tuple = FUSED_BINDINGS
 
     @property
     def g2f(self) -> float:
         return (2.0 * self.xi_unit) / self.scale
 
+    def binding(self, stage: str) -> str:
+        return dict(self.bindings)[stage]
+
 
 def plan_from_cfg(cfg, scale: float, eb_abs: float,
                   name: str = "fused") -> PipelinePlan:
     """Plan from a CompressionConfig + the field-derived stream params;
-    ``name`` is the container's pipeline tag ("fused" | "tiled"), the SL
-    stepper the config's backend (``backend.resolve``)."""
+    ``name`` is the container's pipeline tag ("fused" | "tiled" |
+    "legacy"), the SL stepper the config's backend (``backend.resolve``),
+    "xla" whatever it says for "legacy"."""
     tau = max(int(np.floor(eb_abs * scale)), 0)
     xi_unit, n_usable = quantize.ladder(tau, cfg.n_levels)
+    legacy = name == "legacy"
     return PipelinePlan(
         name=name,
         predictor=cfg.predictor,
@@ -108,34 +130,44 @@ def plan_from_cfg(cfg, scale: float, eb_abs: float,
         zstd_level=cfg.zstd_level,
         verify=cfg.verify,
         max_rounds=cfg.max_rounds,
-        sl_backend=backend.resolve(cfg.backend),
+        sl_backend=LEGACY_SL_BACKEND if legacy
+        else backend.resolve(cfg.backend),
         codec=cfg.codec,
         eb_policy=ebpolicy.policy_spec(ebpolicy.normalize(cfg.eb_policy)),
         batch_units=bool(cfg.batch_units),
+        bindings=LEGACY_BINDINGS if legacy else FUSED_BINDINGS,
     )
 
 
-def plan_from_header(header: dict) -> PipelinePlan:
+def plan_from_header(header: dict, sl_backend=None) -> PipelinePlan:
     """Decode-side plan of a monolithic container or of a tiled footer
-    (whose unit frames carry their own codec).  The header's
-    ``sl_backend`` names the SL stepper the decode replays: "numpy",
-    "xla" or "pallas" (``backend.SL_BACKENDS``), each bitwise equal to
-    the JAX package's stepper of that name as it runs on the CPU; any
-    other tag is refused.  A "pallas" container written on a TPU holds
-    that TPU's f32 arithmetic, which no other machine reproduces
+    (whose unit frames carry their own codec).  The SL stepper the
+    decode replays is ``sl_backend`` (a decode entry's ``backend=``)
+    when given, else the header's ``sl_backend``: "numpy", "xla" or
+    "pallas" (``backend.SL_BACKENDS``), each bitwise equal to the JAX
+    package's stepper of that name as it runs on the CPU; any other name
+    is refused.  A "legacy" container (or one with no ``pipeline`` tag)
+    decodes with the "xla" stepper whatever either says, as the JAX
+    package does.  A "pallas" container written on a TPU holds that
+    TPU's f32 arithmetic, which no other machine reproduces
     (core/backend.py)."""
     name = header.get("pipeline", "legacy")
-    if name not in ("fused", "tiled"):
-        raise NotImplementedError(
-            f"{name!r} pipeline containers are not ported to repro_torch "
-            "yet (ROADMAP Queue 1 item 4: the legacy binding)")
-    tag = header.get("sl_backend")
+    if name not in ("fused", "tiled", "legacy"):
+        raise encode.ContainerError(
+            f"unknown pipeline {name!r}; expected 'fused', 'tiled' or "
+            "'legacy'")
+    if sl_backend is not None:
+        backend.resolve(sl_backend)          # an unknown name raises
+    if name == "legacy":
+        tag = LEGACY_SL_BACKEND
+    else:
+        tag = sl_backend or header.get("sl_backend")
     if tag not in backend.SL_BACKENDS:
         raise ValueError(
             f"container SL stepper {tag!r} cannot be replayed by "
             f"repro_torch (decodes {backend.SL_BACKENDS})")
     codec = header.get("codec")
-    if name == "fused" and codec not in ("zstd", "zlib", "huffman"):
+    if name != "tiled" and codec not in ("zstd", "zlib", "huffman"):
         raise encode.ContainerError(
             f"unknown container codec {codec!r}; expected 'zstd', 'zlib' "
             "or 'huffman'")
@@ -156,6 +188,8 @@ def plan_from_header(header: dict) -> PipelinePlan:
             n_max=int(header["n_max"]),
             sl_backend=tag,
             codec="device" if codec == "huffman" else "host",
+            bindings=LEGACY_BINDINGS if name == "legacy"
+            else FUSED_BINDINGS,
         )
     except (KeyError, TypeError, ValueError) as e:
         raise encode.ContainerError(f"malformed container header: {e}") \
@@ -253,7 +287,10 @@ class PlanExecutor:
                 mop.assemble(res3_v, ressl_v, bm, p.block), bm.numpy())
 
     def decode_fields(self, res_u, res_v, bm):
-        """One unit's (or field's) base-grid integers from its streams."""
+        """One unit's (or field's) base-grid integers from its streams.
+        The legacy plan's "scan" decode is this one with the "xla"
+        stepper: frame by frame, the JAX package's scan computes the
+        same integers."""
         return backend.sl_decode(res_u, res_v, bm, self.plan.block,
                                  *self._sl_args())
 
@@ -327,8 +364,9 @@ class PlanExecutor:
         return entropy.encode_streams(res_u_stack, res_v_stack)
 
 
-def executor_from_header(header: dict, device) -> PlanExecutor:
-    return PlanExecutor(plan_from_header(header), device)
+def executor_from_header(header: dict, device, sl_backend=None
+                         ) -> PlanExecutor:
+    return PlanExecutor(plan_from_header(header, sl_backend), device)
 
 
 # ----------------------------------------------------------------------
@@ -438,17 +476,33 @@ class FieldEncode:
     bad_counts: list
 
 
+def _lorenzo_stage(ex, ufp, vfp, k, lossless, want_x=False):
+    """Both components' Lorenzo residuals (with ``want_x`` also the
+    quantized fields): one K1 launch on the fused binding; on the legacy
+    one the JAX package's unfused stages as torch ops,
+    ``quantize.dual_quantize`` then ``predictors.lorenzo_encode`` (the
+    same integers)."""
+    p = ex.plan
+    if p.binding("encode") == "fused":
+        return backend.lorenzo_residual(ufp, vfp, k, lossless, p.xi_unit,
+                                        p.block, want_x=want_x)
+    xu = quantize.dual_quantize(ufp, k, lossless, p.xi_unit)
+    xv = quantize.dual_quantize(vfp, k, lossless, p.xi_unit)
+    res = (predictors.lorenzo_encode(xu, p.block),
+           predictors.lorenzo_encode(xv, p.block))
+    return res + (xu, xv) if want_x else res
+
+
 def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
                   shape):
     """Quantize + predict on the full field -> (res_u, res_v, bm (host),
-    lossless)."""
+    lossless), through the plan's encode binding (``_lorenzo_stage``)."""
     p = ex.plan
     T, H, W = shape
     nb = (T, -(-H // p.block), -(-W // p.block))
     k, lossless = _levels(eb_vertex, lossless_extra, p.xi_unit, p.n_levels)
     if p.predictor == "lorenzo":
-        res_u, res_v = backend.lorenzo_residual(ufp, vfp, k, lossless,
-                                                p.xi_unit, p.block)
+        res_u, res_v = _lorenzo_stage(ex, ufp, vfp, k, lossless)
         return res_u, res_v, np.zeros(nb, dtype=bool), lossless
     if p.predictor == "sl":
         xu = quantize.dual_quantize(ufp, k, lossless, p.xi_unit)
@@ -459,10 +513,10 @@ def _encode_field(ex: PlanExecutor, ufp, vfp, eb_vertex, lossless_extra,
         bm = np.ones(nb, dtype=bool)
         bm[0] = False
         return res_u, res_v, bm, lossless
-    # MoP: one K1 launch gives both Lorenzo residuals and the quantized
-    # fields the SL predictions start from
-    res3_u, res3_v, xu, xv = backend.lorenzo_residual(
-        ufp, vfp, k, lossless, p.xi_unit, p.block, want_x=True)
+    # MoP: the Lorenzo residuals and the quantized fields the SL
+    # predictions start from (one K1 launch on the fused binding)
+    res3_u, res3_v, xu, xv = _lorenzo_stage(ex, ufp, vfp, k, lossless,
+                                            want_x=True)
     pu, pv = backend.sl_predictions(xu, xv, *ex._sl_args())
     zero = torch.zeros_like(xu[:1])
     ressl_u = torch.cat([zero, xu[1:] - pu])
@@ -488,6 +542,28 @@ def _verify_round(ex, shape, tabs, preds, prev_extra, ufp, vfp, u, v,
     n_face = backend.verify_faces(ur_fp, vr_fp, ufp, vfp, delta,
                                   tabs["slice"], tabs["slab"], *preds, forced)
     return forced, int(n_pt + n_face)
+
+
+def _verify_full(ex, shape, preds, u, v, xu_d, xv_d, lossless,
+                 lossless_extra, bound):
+    """The legacy verify round (the JAX package's ``_verify_full``): the
+    pointwise check, and every face's predicate re-evaluated on the
+    re-fixed reconstruction (``ebound.all_face_predicates``, K2
+    ``face_crossed`` on CUDA) against the original ``preds``; the
+    vertices of every changed face join the forced set on the host.
+    Returns (new forced set, n_bad = bad vertices + bad faces)."""
+    T, H, W = shape
+    p = ex.plan
+    forced, n_pt, ur_fp, vr_fp = _check_pt_core(
+        xu_d, xv_d, lossless, lossless_extra, u, v, p.scale, p.xi_unit,
+        bound)
+    slice1, slab1 = ebound.all_face_predicates(ur_fp, vr_fp)
+    bad_slice = (preds[0] ^ slice1).cpu().numpy()
+    bad_slab = (preds[1] ^ slab1).cpu().numpy()
+    forced |= torch.as_tensor(
+        _faces_to_vertex_mask(bad_slice, bad_slab, T, H, W),
+        device=forced.device)
+    return forced, int(n_pt) + int(bad_slice.sum()) + int(bad_slab.sum())
 
 
 def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
@@ -539,11 +615,16 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
         if not p.verify:
             break
         with obs.span("pipeline.verify_round", round=rounds) as vs:
-            xu_d, xv_d = backend.sl_decode(res_u, res_v, bm, p.block,
-                                           *ex._sl_args())
-            new_extra, n_bad = _verify_round(
-                ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d, vfp_d,
-                u_d, v_d, xu_d, xv_d, lossless, lossless_extra, bound)
+            xu_d, xv_d = ex.decode_fields(res_u, res_v, bm)
+            if p.binding("verify") == "full":
+                new_extra, n_bad = _verify_full(
+                    ex, shape, (slice0, slab0), u_d, v_d, xu_d, xv_d,
+                    lossless, lossless_extra, bound)
+            else:
+                new_extra, n_bad = _verify_round(
+                    ex, shape, tabs, (slice0, slab0), prev_extra, ufp_d,
+                    vfp_d, u_d, v_d, xu_d, xv_d, lossless, lossless_extra,
+                    bound)
             vs.set(n_bad=n_bad)
         bad_counts.append(n_bad)
         if n_bad == 0 or rounds >= p.max_rounds:
@@ -560,8 +641,9 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
 # ----------------------------------------------------------------------
 
 def field_header(plan: PipelinePlan, shape) -> dict:
-    """The JAX package's ``pipeline.field_header`` for a fused plan, with
-    the plan's SL stepper tag.  The key order fixes the bytes."""
+    """The JAX package's ``pipeline.field_header``: the plan's SL stepper
+    tag, but none for the legacy plan.  The key order fixes the
+    bytes."""
     T, H, W = shape
     header = {
         # the version moves only with a policy: uniform containers stay
@@ -573,8 +655,9 @@ def field_header(plan: PipelinePlan, shape) -> dict:
     }
     if plan.eb_policy:
         header["eb_policy"] = plan.eb_policy
+    if plan.name != "legacy":
+        header["sl_backend"] = plan.sl_backend
     header.update({
-        "sl_backend": plan.sl_backend,
         "shape": [int(T), int(H), int(W)],
         "scale": float(plan.scale),
         "xi_unit": int(plan.xi_unit),

@@ -50,7 +50,11 @@ Entry points:
     u, v, report = decompress_tiled(blob, degraded=True)   # damaged units
     plan = read_plan(blob, region)   # directory entries a decode reads
 
-Each runs on the CUDA device unless ``device="cpu"`` is passed.
+Each runs on the CUDA device unless ``device="cpu"`` is passed.  The
+compress entries ignore ``cfg.fused`` (and ``REPRO_FUSED``), as the JAX
+package's do: every unit runs the fused stages.  The decode entries take
+the JAX package's ``backend=``, the SL stepper that replaces the
+footer's ``sl_backend``.
 
 ``compress_stream`` consumes per-frame ``(u_t, v_t)`` planes and keeps
 only the frames the first pending window needs (``_Planes.drop_below``);
@@ -1173,7 +1177,8 @@ class DecodeReport:
         return mask
 
 
-def decompress_tiled(src, region=None, *, device=None, degraded=False):
+def decompress_tiled(src, region=None, backend=None, degraded=False, *,
+                     device=None):
     """Decode a tiled container (the whole field, or ``region`` = (t0,
     t1, i0, i1, j0, j1)) from bytes, a path or a ContainerSource: reads
     only the units whose owned boxes overlap the region, one range read
@@ -1181,11 +1186,15 @@ def decompress_tiled(src, region=None, *, device=None, degraded=False):
     region decode goes through the decoded-unit cache
     (analysis/query.py); a full decode streams unit by unit past it.
 
+    ``backend`` names the SL stepper of the decode in place of the
+    footer's ``sl_backend`` ("numpy", "xla" or "pallas").
+
     ``degraded=True`` turns per-unit damage (checksum mismatch, short
     read) into a report: the return is ``(u, v, DecodeReport)`` with the
     damaged units' voxels left 0.  A corrupt footer still raises (run
     ``encode.salvage_container`` first)."""
     dev = compressor.resolve_device(device)
+    compressor.refuse_plain_on_card(backend, dev)
     from ..analysis import query
 
     report = DecodeReport()
@@ -1209,7 +1218,7 @@ def decompress_tiled(src, region=None, *, device=None, degraded=False):
                 and 0 <= rj0 < rj1 <= W):
             raise ValueError(f"region {region} outside field "
                              f"({T}, {H}, {W})")
-        ex = pipeline.executor_from_header(hdr, dev)
+        ex = pipeline.executor_from_header(hdr, dev, backend)
         u_out = np.zeros((rt1 - rt0, ri1 - ri0, rj1 - rj0), dtype=np.float32)
         v_out = np.zeros_like(u_out)
         entries = _plan_entries(hdr, region)
@@ -1258,9 +1267,11 @@ def decompress_tiled(src, region=None, *, device=None, degraded=False):
     return u_out, v_out
 
 
-def decompress_region(src, region, *, device=None, degraded=False):
+def decompress_region(src, region, backend=None, degraded=False, *,
+                      device=None):
     """Random-access decode of (t0, t1, i0, i1, j0, j1): reads only the
     units covering the region (cached across repeated queries).
-    ``degraded=True`` reports damaged units instead of raising."""
-    return decompress_tiled(src, region=region, device=device,
-                            degraded=degraded)
+    ``backend`` as in ``decompress_tiled``; ``degraded=True`` reports
+    damaged units instead of raising."""
+    return decompress_tiled(src, region=region, backend=backend,
+                            degraded=degraded, device=device)

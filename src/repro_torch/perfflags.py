@@ -6,11 +6,10 @@ environment (or, for ``BASELINE``, this module's attribute).
 ``REPRO_PERF_BASELINE=1`` (``BASELINE``) reverts the perf iterations the
 models carry, where the JAX package does:
 
-  H1  not reverted: the reference's BASELINE drops the head-sharding
-      ``act(q, "logits")`` on the q / r, k, v projections, but the
-      port's ``act`` changes nothing on one card, so the port always
-      calls it; H1 has effect only once sharded execution (ROADMAP
-      item 13d) makes ``act`` redistribute
+  H1  the head-sharding ``act(q, "logits")`` on the q / r, k, v
+      projections (models/layers.py, rwkv.py; BASELINE skips it, as the
+      reference does); it redistributes only over a device mesh
+      (sharded execution), and on one card changes nothing
   H2  recomputation of the Mamba and RWKV chunk bodies in the backward
       pass (``checkpoint_if_optimized``)
   H3  Mamba's chunk outputs cast to the activation dtype in the chunk
@@ -18,13 +17,13 @@ models carry, where the JAX package does:
   H5  norm and router statistics from the activation-dtype values (vs
       an f32 copy of the activations and weights)
 
-``REPRO_FUSED=0`` asks ``compress`` for the legacy binding, which the port
-refuses; ``REPRO_BACKEND`` names the SL stepper a compress runs and
-writes in its header when ``CompressionConfig.backend`` names none
-(``numpy``, ``xla`` or ``pallas``, the JAX package's backend names:
-core/backend.py), and ``numpy`` also allows only the plain versions
-(CPU); ``REPRO_JIT_CACHE`` moves the directory of the built kernel
-libraries.
+``REPRO_FUSED=0`` makes ``compress`` run the legacy (seed) binding when
+``CompressionConfig.fused`` is None (core/pipeline.py);
+``REPRO_BACKEND`` names the SL stepper a compress runs and writes in its
+header when ``CompressionConfig.backend`` names none (``numpy``, ``xla``
+or ``pallas``, the JAX package's backend names: core/backend.py), and
+``numpy`` also allows only the plain versions (CPU); ``REPRO_JIT_CACHE``
+moves the directory of the built kernel libraries.
 """
 from __future__ import annotations
 
@@ -64,8 +63,8 @@ def plain_kernels() -> bool:
 
 def fused_default():
     """``REPRO_FUSED=0`` asks for the legacy (seed) binding of
-    ``compress``, which is not ported: ``compress`` raises as it does for
-    ``fused=False``.  Default: the fused pipeline."""
+    ``compress``, as ``fused=False`` does.  Default: the fused
+    pipeline."""
     return os.environ.get("REPRO_FUSED", "1") != "0"
 
 

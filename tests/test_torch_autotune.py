@@ -10,12 +10,15 @@ hand and of the reference's plan with ``backend="numpy"``.  The
 calibration table has its own format; the reference's table is refused.
 Mirrors tests/test_autotune.py except its wall-clock gate.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import importlib
 import json
 
 import numpy as np
-import pytest
 import torch
 
 import repro.core as core

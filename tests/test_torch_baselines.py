@@ -9,8 +9,11 @@ bitwise-equal reconstruction (sz3-like and cpsz-like with
 the all-face predicates and the face-to-vertex mask behind cpsz-like
 equal the reference's.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro import baselines as r_baselines

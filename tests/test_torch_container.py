@@ -6,11 +6,14 @@ header subset), the reader must invert it, ``pack`` must be byte-equal
 for the same sections with zstd and with the zlib fallback, and damaged
 containers must raise ``ContainerError``.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import zlib
 
 import msgpack
 import numpy as np
-import pytest
 from hypothesis import given, settings, strategies as st
 
 import repro.core as core
@@ -138,8 +141,10 @@ def test_damaged_containers_raise(ref_blob):
 def test_refuses_unported_container_kinds(ref_blob):
     """Every SL stepper tag the JAX package writes decodes ("pallas"
     replays its stepper, here the f64 "xla" path of a 12-row field, as
-    the reference's decode does); any other tag, a newer version, a
-    malformed header and the legacy pipeline are refused."""
+    the reference's decode does), and so does the legacy pipeline, or
+    no pipeline tag (the "xla" stepper, whatever the header's tag
+    says); any other tag or
+    pipeline, a newer version and a malformed header are refused."""
     import repro_torch
 
     header, sections = _header_and_sections(ref_blob)
@@ -157,8 +162,16 @@ def test_refuses_unported_container_kinds(ref_blob):
     doctored = r_encode.pack(dict(header, block=0), sections)
     with pytest.raises(encode.ContainerError, match="block 0"):
         repro_torch.decompress(doctored, device="cpu")
-    doctored = r_encode.pack(dict(header, pipeline="legacy"), sections)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    untagged = {k: x for k, x in header.items() if k != "pipeline"}
+    for doctored in [r_encode.pack(dict(header, pipeline="legacy",
+                                        sl_backend=tag), sections)
+                     for tag in ("numpy", "bogus")] \
+            + [r_encode.pack(untagged, sections)]:
+        for a, b in zip(repro_torch.decompress(doctored, device="cpu"),
+                        core.decompress(doctored)):
+            assert np.array_equal(a, b)
+    doctored = r_encode.pack(dict(header, pipeline="seed"), sections)
+    with pytest.raises(encode.ContainerError, match="pipeline 'seed'"):
         repro_torch.decompress(doctored, device="cpu")
     # a tiled container is no monolithic frame: unpack names the reader
     with pytest.raises(encode.ContainerError, match="decompress_tiled"):

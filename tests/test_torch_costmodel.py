@@ -6,10 +6,13 @@ the H100 terms, and the dot flops of SMOKE prefill and decode steps of
 five families within 1 % of the walker's dot flops over the jitted
 single-device HLO (the walker's count includes the f32 RMS statistics,
 which XLA computes as dots and the port as products and a sum)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as JC

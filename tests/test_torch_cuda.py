@@ -9,8 +9,11 @@ reason.  The file imports no JAX, so it runs on the card's machine:
 Kernel and plain version must agree bitwise, and a compress on the card
 must write the bytes of a compress on the CPU, with either codec.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 import repro_torch

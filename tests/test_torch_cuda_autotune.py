@@ -9,8 +9,11 @@ CUDA device and nvcc; elsewhere they skip.  The file imports no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_autotune.py
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 import repro_torch

@@ -9,6 +9,9 @@ file imports no JAX, so it runs on the card's machine:
         tests/test_torch_cuda_perfflags.py
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import repro_torch

@@ -14,10 +14,13 @@ elsewhere they skip.  The file imports no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_sl_variants.py
 """
+import pytest
+
+pytest.importorskip("torch")
+
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import repro_torch

@@ -10,10 +10,13 @@ and ``multi`` (2, 16, 16) trace the reference's tiny-mesh cell
 child process on a fake process group: per-device dot flops times the
 mesh size equal the card's (batch and heads divide both meshes) and
 collectives move bytes."""
+import pytest
+
+pytest.importorskip("torch")
+
 import contextlib
 import json
 
-import pytest
 import torch
 
 import repro_torch.configs as TC

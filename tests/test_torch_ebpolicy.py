@@ -8,9 +8,12 @@ vertex stays within its own base bound.  The uniform spellings keep the
 pre-policy (version 2) bytes.  Mirrors the monolithic cases of
 tests/test_ebpolicy.py.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import msgpack
 import numpy as np
-import pytest
 
 import repro.core as core
 from repro.core import ebpolicy as r_ebpolicy

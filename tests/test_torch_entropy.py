@@ -12,8 +12,11 @@ cross-decode bitwise in both directions.  Every comparison is exact.
 K5 itself runs only on the card: tests/test_torch_cuda.py holds it
 against the plain version.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 import repro.core as core

@@ -6,9 +6,12 @@ bit-equal to ``repro.core`` on the same numpy inputs.  Every comparison
 is exact: the stages are int64, and the only floats (the eb division
 and floor, the quantize ratio) follow the reference's op order.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import ebound as r_ebound

@@ -1,6 +1,10 @@
 """Guards of the PyTorch port: it imports no JAX and nothing of the JAX
 package, it runs on CUDA unless asked for the CPU, and it refuses the
 options whose code paths are not ported."""
+import pytest
+
+pytest.importorskip("torch")
+
 import io
 import os
 import re
@@ -9,7 +13,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import repro_torch
@@ -129,7 +132,9 @@ def test_stream_and_read_entry_points_need_cuda(no_cuda, field):
     (dict(codec="device", tiling=repro_torch.TileGrid(thalo=0)), ValueError,
      "thalo"),
     (dict(codec="gzip"), ValueError, "codec"),
-    (dict(fused=False), NotImplementedError, "item 4"),
+    # the legacy binding runs (tests/test_torch_legacy.py) and checks
+    # the config as the fused one does
+    (dict(fused=False, codec="gzip"), ValueError, "codec"),
     (dict(eb_policy=object()), TypeError, "eb_policy"),
 ])
 def test_unported_config_refused(field, kw, exc, match):

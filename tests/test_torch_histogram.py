@@ -8,11 +8,14 @@ give ``np.bincount``; and the source's constants must keep a byte lane
 from carrying before it is folded.  The kernel itself runs only on the
 card (tests/test_torch_cuda.py holds it against the plain version).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import re
 from pathlib import Path
 
 import numpy as np
-import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/entropy.cu"
 U = np.uint64

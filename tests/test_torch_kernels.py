@@ -10,9 +10,12 @@ K5 is held against the reference in tests/test_torch_entropy.py.  All
 comparisons are exact.  The kernels themselves run only on the
 card: tests/test_torch_cuda.py holds them against these plain versions.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import backend as r_backend

@@ -10,12 +10,15 @@ numpy arrays from a seeded generator.  JAX runs on the CPU, the port with
 """
 from __future__ import annotations
 
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as JC

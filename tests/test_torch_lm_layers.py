@@ -6,12 +6,15 @@ Tolerances: f32 ``rtol=atol=2e-4`` (the reference's own decode-vs-prefill
 bound) unless a case states a tighter one; bf16 cases allow 2 bf16 ulps
 of the output's magnitude (2 * 2^-8 relative).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as JC

@@ -7,8 +7,11 @@ the final cache) and four greedy steps (tokens equal).
 Tolerance: ``rtol=atol=2e-4`` (the reference's own
 ``test_decode_matches_prefill_dense`` bound); the runs differ by < 1e-5.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 import repro.configs as JC
 

@@ -11,8 +11,11 @@ relative difference found is 0.024 (rwkv6 decode logits).  An int8
 cache entry may differ by one step (x * 16 rounded from differing
 bf16 values).
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 import repro.configs as JC
 

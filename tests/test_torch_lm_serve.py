@@ -2,10 +2,13 @@
 greedy loops over the JAX package's prefill / decode_step, the hybrid
 family's cache splice, and the guards of the LM scaffold's entry points.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.models.transformer import build_model as jax_build

@@ -12,9 +12,12 @@ version on extreme int64 values.  The MoP encode makes one pair call per
 verify round.  All comparisons are exact; the kernel itself runs only on
 the card (tests/test_torch_cuda.py).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import backend as r_backend

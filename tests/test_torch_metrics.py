@@ -6,8 +6,11 @@ gives the reference's dict, the track counts ``n_traj_orig`` /
 reference's counts; and the entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro.core import fixedpoint as r_fixedpoint, metrics as r_metrics, \

@@ -8,8 +8,11 @@ dropped) instead of failing.  The container must be the reference's
 bytes with either codec, cross-decode bitwise, and give the non-finite
 value back bit for bit.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 import repro.core as core
 import repro_torch

@@ -2,16 +2,19 @@
 JAX package's: ``REPRO_PERF_BASELINE`` (``BASELINE``: loss and gradients
 of a SMOKE step equal the reference's baseline step, within PERF.md
 section 2's LM bounds, and the chunk bodies are no longer recomputed),
-``REPRO_FUSED=0`` (refused like ``fused=False``), ``REPRO_BACKEND``
+``REPRO_FUSED=0`` (the legacy binding, as ``fused=False``), ``REPRO_BACKEND``
 (``numpy``: the plain versions of the kernels on the CPU, CUDA tensors
 refused; ``pallas`` / ``xla``: the JAX package's SL steppers of those
 names and their header tag; any other name refused) and
 ``REPRO_JIT_CACHE`` (the kernel build directory)."""
+import pytest
+
+pytest.importorskip("torch")
+
 from pathlib import Path
 
 import jax
 import numpy as np
-import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -115,17 +118,25 @@ def field():
 
 
 def test_fused_0_is_refused_like_fused_false(monkeypatch, field):
+    """``REPRO_FUSED=0`` runs what ``fused=False`` runs (it was refused
+    like it before the legacy binding was ported): the legacy container;
+    the tiled entry ignores both, as the reference's does."""
     u, v = field
+    legacy, _ = repro_torch.compress(
+        u, v, repro_torch.CompressionConfig(fused=False), device="cpu")
+    grid = repro_torch.TileGrid(4, 4, 2)
+    tiled, _ = repro_torch.compress(
+        u, v, repro_torch.CompressionConfig(tiling=grid), device="cpu")
     monkeypatch.setenv("REPRO_FUSED", "0")
     assert JP.fused_default() is TP.fused_default() is False
-    with pytest.raises(NotImplementedError, match="REPRO_FUSED"):
-        repro_torch.compress(u, v, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        repro_torch.compress(u, v, repro_torch.CompressionConfig(
-            tiling=repro_torch.TileGrid(4, 4, 2)), device="cpu")
+    blob, stats = repro_torch.compress(u, v, device="cpu")
+    assert blob == legacy and stats["pipeline"] == "legacy"
+    assert repro_torch.compress(u, v, repro_torch.CompressionConfig(
+        tiling=grid), device="cpu")[0] == tiled
     # an explicit fused=True wins over the environment, as in the reference
     blob, _ = repro_torch.compress(
         u, v, repro_torch.CompressionConfig(fused=True), device="cpu")
+    assert blob != legacy
     monkeypatch.setenv("REPRO_FUSED", "1")
     assert TP.fused_default() is True
     assert repro_torch.compress(u, v, device="cpu")[0] == blob

@@ -7,11 +7,14 @@ accounting; containers must cross-decode bitwise in both directions;
 the checked-in v2 golden must decode bitwise; the trajectories must be
 preserved (FC_t = FC_s = 0).  All comparisons are exact.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import os
 
 import numpy as np
-import pytest
 
 import repro.core as core
 from repro.core import encode as r_encode

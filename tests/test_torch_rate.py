@@ -9,8 +9,11 @@ result stays within its own policy bound and FC_t = FC_s = 0.  Mirrors
 the target-ratio cases of tests/test_ebpolicy.py and
 tests/adaptive_smoke.py.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 import repro.core as core
 import repro_torch

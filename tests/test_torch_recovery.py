@@ -14,6 +14,10 @@ port, against the JAX package (CPU).
 
 Mirrors tests/test_recovery.py and tests/test_faults.py.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import io
 import os
 import signal
@@ -22,7 +26,6 @@ import sys
 import time
 
 import numpy as np
-import pytest
 
 import repro.core as core
 from repro.core import encode as r_encode

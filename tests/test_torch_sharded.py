@@ -38,6 +38,10 @@ host devices.
   4 equals the count of the same step on four real gloo ranks (a (2, 2)
   mesh): ops, flops and collective bytes by kind, both on "cpu" meshes.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import json
 import os
@@ -46,7 +50,6 @@ import sys
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as JC

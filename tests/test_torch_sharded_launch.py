@@ -4,13 +4,16 @@
 within the reference's sharded-test tolerance (3e-3; the SMOKE model's
 bf16 activations), only rank 0 logs, rank 0's checkpoint restores in the
 reference, and ``--resume`` on the mesh continues the step sequence."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import re
 import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 from repro.train import checkpoint as JC
 from repro_torch.launch import train

@@ -7,10 +7,13 @@ leaf's spec loses its leading ``None`` in the port; ``P()`` stays),
 ``fit_spec`` and the cache and batch layouts.  Meshes are device-free
 on both sides (``jax.sharding.AbstractMesh``,
 ``repro_torch.launch.mesh.Mesh``)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 
 import jax
-import pytest
 import torch
 from jax.sharding import AbstractMesh
 from torch._subclasses.fake_tensor import FakeTensorMode

@@ -32,11 +32,14 @@ before, gives other values).
 
 rewrites both golden files.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import contextlib
 from pathlib import Path
 
 import numpy as np
-import pytest
 
 import repro.core as core
 from repro.core import encode as r_encode

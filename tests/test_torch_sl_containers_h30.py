@@ -5,6 +5,8 @@ that is no multiple of the Pallas kernel's 8-row tile (H = 30: the
 """
 import pytest
 
+pytest.importorskip("torch")
+
 import test_torch_sl_containers as C
 
 SHAPE = (6, 30, 40)

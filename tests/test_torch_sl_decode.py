@@ -10,8 +10,11 @@ keep every SL pixel on the RK2 branch and ones whose substeps clamp at
 n_max.  The kernel itself runs only on the card
 (tests/test_torch_cuda.py holds it against this plain version).
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro.core import backend as r_backend

@@ -25,11 +25,14 @@ so only the batched float check uses one (the f32 stepper's integers are
 held at n_max 8; at n_max 32 the "pallas" tag is held where it runs the
 "xla" path).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import backend as r_backend

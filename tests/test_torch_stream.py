@@ -11,11 +11,14 @@ fire.  The plane store keeps only the frames the first pending window
 needs.  Mirrors tests/test_tiled_streaming.py and
 tests/test_stream_async.py.  All comparisons are exact.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import io
 import sys
 
 import numpy as np
-import pytest
 
 import repro.core as core
 from repro.core import ebpolicy as r_ebpolicy

@@ -11,8 +11,11 @@ monolithic decode and the unit-batched stages write the bytes of the
 single-unit ones, for each predictor and a block that leaves partial
 blocks.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 import repro.core as core

@@ -13,13 +13,16 @@ tests/test_torch_tiled_container.py, beside the reference blobs of
 their fields.  The last test pins a fault of the reference's own
 multi-device path (ROADMAP Queue 3 item 14).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import subprocess
 import sys
 import textwrap
 import threading
 
-import pytest
 import torch
 
 import repro_torch

@@ -10,12 +10,15 @@ the units ``read_plan`` names, and the checked-in version-3 tiled golden
 decodes bitwise.  The unit-batched plain versions equal a loop of the
 single-unit ones.  All comparisons are exact.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import zlib
 
 import msgpack
 import numpy as np
-import pytest
 import torch
 
 import repro.core as core

@@ -11,10 +11,13 @@ issues fewer range reads (the decoded-unit cache); and
 ``track_aware_policy`` must be the reference's policy.  Mirrors
 tests/test_analysis_tracks.py and tests/test_track_query.py.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import copy
 
 import numpy as np
-import pytest
 
 from repro import analysis as r_analysis
 from repro.analysis import query as r_query

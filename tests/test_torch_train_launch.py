@@ -6,13 +6,16 @@ with the same TypeError, a ``--mesh`` of more devices than the process
 group's ranks raises ValueError (``1x1`` trains as without it; the
 sharded launch is ``tests/test_torch_sharded_launch.py``) and the entry
 points need CUDA unless given the CPU."""
+import pytest
+
+pytest.importorskip("torch")
+
 import json
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.models import transformer as JM

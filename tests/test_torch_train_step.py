@@ -11,9 +11,12 @@ about +-lr_1, so an element whose gradient is near zero in both packages
 can move either way).  bf16 activations: each tensor within
 0.05 * max(1, max |ref|) (PERF.md section 2's bound).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as JC

@@ -4,12 +4,15 @@ gradient compression (bitwise), the token pipeline (bitwise), the
 chunked cross-entropy, the layout conversion back to the reference's
 stacked tree; and the decode step past the cache's last slot (both
 packages write the last slot again)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as JC

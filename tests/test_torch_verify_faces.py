@@ -13,12 +13,15 @@ columns) is transcribed here from csrc/cptest.cu and must cover every
 face once, at every width.
 The kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import re
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro.core as core

@@ -9,6 +9,10 @@ run every case on the meshes (4, 2) ("data", "model") and (2, 2, 2)
 writes).  Nothing here imports JAX: the tests hold these results against
 the reference.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import contextlib
 import dataclasses
 import json
