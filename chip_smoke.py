@@ -41,8 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
               6, batch_units off, and the field whose verify rounds fire)
               and for compress_stream (serial and async, versions 4, 5
               and 6), and a salvage of a card container cut mid-frame
-              == the CPU's; a tuned plan (monolithic and tiled), a
-              stream with autotune=True, the target-ratio search (the
+              == the CPU's; a tuned plan (monolithic and tiled, and
+              one whose table favours the "xla" arm), a stream with
+              autotune=True, the target-ratio search (the
               uniform run sufficient, and the relax ladder) and the
               sz3-like / cpsz-like baselines on the card == on the CPU
 4. main    -- compress -> decompress at full size with each codec: the
@@ -100,14 +101,18 @@ Phases (any failure exits non-zero; nothing is caught):
               read and the launches of the cold query
 4h. autotune -- a calibration on the card at the default shapes (into
               a temporary table under build/): the fitted (c0, c1) of
-              the ten stages; tune_config with measure-verify at the
-              SCF analogue and at 64x512x512: predicted and measured
-              seconds of the three measured candidates, the chosen
-              plan's bytes == the same plan set by hand, the pointwise
-              bound and FC = 0, the launches, its seconds against the
-              default monolithic plan's; tune_stream and a 64-frame
-              compress_stream(autotune=True) == compress_tiled of the
-              chosen plan; target_ratio at 1.5x the SCF uniform ratio
+              the ten stages for each of the card's three backend arms
+              (SL steppers "pallas", "xla", "numpy"); tune_config with
+              measure-verify at the SCF analogue and at 64x512x512: the
+              arm, predicted and measured seconds of the three measured
+              candidates, the chosen arm and plan, its container's
+              sl_backend == the arm, its bytes == the same plan set by
+              hand (backend included), the pointwise bound and FC = 0,
+              the launches (K3 / K4 of the arm's stepper only), its
+              seconds against the default monolithic plan's;
+              tune_stream and a 64-frame compress_stream(autotune=True)
+              == compress_tiled of the chosen plan (its arm's
+              sl_backend); target_ratio at 1.5x the SCF uniform ratio
               (every vertex within its own policy bound, FC = 0, the
               rungs, the ratio reached); each baseline of
               repro_torch.baselines at the SCF analogue: ratio,
@@ -1006,16 +1011,37 @@ def parity_stream(dev, u, v):
             "equal")
 
 
-def fixed_table(kind, mono):
-    """A fixed calibration table for ``kind``; ``mono`` scales the
-    monolithic stages' coefficients (1000 makes a tiled plan win)."""
+def fixed_table(kind, mono, favour=None):
+    """A fixed calibration table for ``kind``, (backend, stage) keys over
+    the card's three arms; ``mono`` scales the monolithic stages'
+    coefficients (1000 makes a tiled plan win), and the arm ``favour``
+    costs half of the others (None: the arms tie, and the candidate key
+    breaks the tie to "numpy")."""
     from repro_torch import autotune
     from repro_torch.autotune import costmodel
 
     return autotune.CalibrationTable(device_kind=kind, coeffs={
-        (kind, st): (1e-4 * (i + 1) * (mono if i < 5 else 1.0),
-                     1e-8 * (i + 2) * (mono if i < 5 else 1.0))
+        (be, st): (1e-4 * (i + 1) * (mono if i < 5 else 1.0)
+                   * (0.5 if be == favour else 1.0),
+                   1e-8 * (i + 2) * (mono if i < 5 else 1.0)
+                   * (0.5 if be == favour else 1.0))
+        for be in ("pallas", "xla", "numpy")
         for i, st in enumerate(costmodel.STAGES)})
+
+
+def sl_tag(blob):
+    """The container header's ``sl_backend`` (monolithic or tiled)."""
+    from repro_torch.core import encode
+
+    if encode.is_tiled(blob):
+        return encode.tiled_header(blob)["sl_backend"]
+    return encode.unpack(blob)[0]["sl_backend"]
+
+
+def arm_of(plan):
+    """The backend arm of a candidate's ``describe()``
+    ("mono/xla/host" -> "xla")."""
+    return plan.split("/")[1]
 
 
 class TablePath:
@@ -1041,9 +1067,10 @@ class TablePath:
 def parity_autotune(dev):
     """Autotuned, rate-targeted and baseline bytes on the card == on the
     CPU, on small fields: the plan a fixed table picks (monolithic, and
-    tiled with the device codec), a stream with autotune=True, the
-    target-ratio search with the uniform run sufficient and with the
-    relax ladder, and sz3-like / cpsz-like sizes and reconstructions."""
+    tiled with the device codec, and with a table favouring the "xla"
+    arm), a stream with autotune=True, the target-ratio search with the
+    uniform run sufficient and with the relax ladder, and sz3-like /
+    cpsz-like sizes and reconstructions."""
     import tempfile
 
     import repro_torch as rt
@@ -1055,19 +1082,24 @@ def parity_autotune(dev):
     u = np.cumsum(rng.normal(size=(T, H, W)).astype(np.float32), axis=0)
     v = u[::-1].copy()
     devices = (dev, torch.device("cpu"))
-    for mono in (1.0, 1000.0):
+    for mono, favour in ((1.0, None), (1000.0, None), (1.0, "xla")):
         cfg = rt.CompressionConfig(eb=1e-2)
         plans, blobs = [], []
         for d in devices:
             tuned = autotune.tune_config(
-                u, v, cfg, table=fixed_table(autotune.device_kind(d), mono),
+                u, v, cfg,
+                table=fixed_table(autotune.device_kind(d), mono, favour),
                 measure=False, device=d)
             plans.append(autotune.last_report()["chosen"])
             blobs.append(rt.compress(u, v, tuned, device=d)[0])
         assert plans[0] == plans[1] and blobs[0] == blobs[1], \
             f"parity autotune {plans}: card and CPU blobs differ"
-        say(f"parity autotune {(T, H, W)} (monolithic stages x{mono}): "
-            f"plan {plans[0]}, card blob == CPU blob ({len(blobs[0])} B)")
+        arm = arm_of(plans[0])
+        assert arm == (favour or "numpy") and sl_tag(blobs[0]) == arm, \
+            f"parity autotune {plans[0]}: sl_backend {sl_tag(blobs[0])}"
+        say(f"parity autotune {(T, H, W)} (monolithic stages x{mono}, "
+            f"favoured arm {favour}): plan {plans[0]}, sl_backend {arm}, "
+            f"card blob == CPU blob ({len(blobs[0])} B)")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         blobs = []
         for i, d in enumerate(devices):
@@ -2726,20 +2758,41 @@ def phase_query(dev, tiled_runs):
 # phase 4h: plan autotuning, rate-targeted compression, the baselines
 # ----------------------------------------------------------------------
 
-def check_path_launches(tag, codec, counts):
+SL_BASES = ("sl_decode", "sl_decode_units", "sl_step_batched")
+
+
+def check_path_launches(tag, codec, counts, arm="numpy", H=None):
     """Every kernel of a compress -> decompress launched at least once
     (the whole-field or the unit-batched entry), the per-frame stepper
-    never."""
+    never, and K3 / K4 only in the variants that header tag ``arm``
+    runs: ``backend.sl_variant(arm, H)`` on a monolithic field of H
+    rows; on tiled units (``H=None``), whose planes differ in rows,
+    "pallas" may run "xla" too.  ``counts`` must hold every variant's
+    wrapper (``stepper_wrappers``)."""
+    from repro_torch.core import backend
+
+    if H is not None:
+        allowed = {backend.sl_variant(arm, H)}
+    else:
+        allowed = {arm} | ({"xla"} if arm == "pallas" else set())
+    sfx = [("" if a == "numpy" else f"_{a}") for a in sorted(allowed)]
     pairs = [("K1", ("lorenzo_residual", "lorenzo_residual_units")),
              ("K2", ("verify_faces", "verify_faces_units")),
-             ("K3", ("sl_decode", "sl_decode_units")),
-             ("K4", ("sl_step_batched",))]
+             ("K3", tuple(f"{b}{x}" for b in SL_BASES[:2] for x in sfx)),
+             ("K4", tuple(f"sl_step_batched{x}" for x in sfx))]
     if codec == "device":
         pairs.append(("K5", ("symbol_histogram",)))
     for k, names in pairs:
         assert sum(counts[n] for n in names) > 0, \
             f"{tag}: {k} ({' / '.join(names)}) not launched"
     assert counts["sl_step"] == 0, f"{tag}: the per-frame stepper ran"
+    assert all(f"{b}{x}" in counts for b in SL_BASES
+               for x in ("", "_xla", "_pallas")), sorted(counts)
+    stray = {n: c for n, c in counts.items() if c
+             and split_variant(n)[0] in SL_BASES
+             and split_variant(n)[1] not in allowed}
+    assert not stray, \
+        f"{tag}: arm {arm} launched other stepper variants {stray}"
 
 
 def counted(fns, fn):
@@ -2755,7 +2808,8 @@ def hand_set(cfg, tuned):
 
     g = tuned.tiling
     return dataclasses.replace(
-        cfg, codec=tuned.codec, batch_units=tuned.batch_units,
+        cfg, backend=tuned.backend, codec=tuned.codec,
+        batch_units=tuned.batch_units,
         batch_cap=tuned.batch_cap, q_in_frames=tuned.q_in_frames,
         q_out_units=tuned.q_out_units,
         tiling=None if g is None else rt.TileGrid(
@@ -2786,21 +2840,26 @@ def phase_autotune(dev, main):
         trajectory
     from repro_torch.data import synthetic
 
-    fns = wrappers()
+    fns = {**wrappers(), **stepper_wrappers()}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
             TablePath(Path(tmp) / "autotune_calib.json") as tp:
         t0 = time.perf_counter()
         table = autotune.calibrate(path=tp.path, device=dev)
         calib_s = time.perf_counter() - t0
-        kind = autotune.device_kind(dev)
-        assert set(table.coeffs) == {(kind, st) for st in costmodel.STAGES}, \
+        arms = autotune.available_backends(dev)
+        assert arms == ("pallas", "xla", "numpy") \
+            and table.meta["backends"] == list(arms), table.meta
+        assert set(table.coeffs) == {(be, st) for be in arms
+                                     for st in costmodel.STAGES}, \
             sorted(table.coeffs)
         assert all(c0 >= 0 and c1 >= 0 for c0, c1 in table.coeffs.values())
         say(f"autotune calibration on the card at {table.meta['shapes']} "
-            f"in {calib_s:.2f} s: (c0 s a dispatch, c1 s an element) "
-            + json.dumps({st: table.coeffs[kind, st]
-                          for st in costmodel.STAGES}))
+            f"in {calib_s:.2f} s, {len(table.coeffs)} coefficient pairs")
+        for be in arms:
+            say(f"autotune calibration arm {be}: (c0 s a dispatch, c1 s "
+                "an element) " + json.dumps({st: table.coeffs[be, st]
+                                             for st in costmodel.STAGES}))
 
         for T, H, W in SIZES["main"]:
             u, v = synthetic.vortex_street(T=T, H=H, W=W)
@@ -2813,25 +2872,31 @@ def phase_autotune(dev, main):
             measured = [p for p in rep["plans"] if p["measured_s"] is not None]
             assert len(measured) == 3 and rep["plans"][0]["chosen"]
             sample = autotune._sample(u, v)[0].shape
+            arm = arm_of(rep["chosen"])
             say(f"{tag}: tuned in {tune_s:.2f} s over "
                 f"{len(rep['plans'])} candidates; measured on {sample}: "
-                + "; ".join(f"{p['plan']} predicted {p['predicted_s']:.6f} s "
-                            f"(full field), measured {p['measured_s']:.6f} s"
+                + "; ".join(f"{p['plan']} (arm {arm_of(p['plan'])}) "
+                            f"predicted {p['predicted_s']:.6f} s (full "
+                            f"field), measured {p['measured_s']:.6f} s"
                             for p in measured)
-                + f"; chosen {rep['chosen']}")
+                + f"; chosen {rep['chosen']}, arm {arm}")
             (blob, stats), enc = counted(
                 fns, lambda: rt.compress(u, v, tuned, device=dev))
             (ur, vr), dec = counted(fns, lambda: rt.decompress(blob,
                                                                device=dev))
+            assert sl_tag(blob) == arm, \
+                f"{tag}: sl_backend {sl_tag(blob)} != the chosen arm {arm}"
             launches = {n: enc[n] + dec[n] for n in enc}
-            check_path_launches(tag, tuned.codec, launches)
+            check_path_launches(tag, tuned.codec, launches, arm,
+                                H if tuned.tiling is None else None)
             check_guarantees(tag, u, v, ur, vr, stats, dev)
             hand = hand_set(cfg, tuned)
             blob_hand, chosen_s = timed_compress(dev, u, v, hand)
             assert blob_hand == blob, f"{tag}: tuned bytes != hand-set bytes"
             mono = next(r for r in main if r["shape"] == (T, H, W)
                         and r["codec"] == "host")
-            say(f"{tag}: chosen {rep['chosen']} bytes == the plan set by "
+            say(f"{tag}: chosen {rep['chosen']} (sl_backend {arm}) bytes "
+                f"== the plan set by "
                 f"hand ({len(blob)} B, ratio {stats['ratio']:.4f}); encode "
                 f"{chosen_s:.3f} s against the default monolithic plan's "
                 f"{mono['enc_s']:.3f} s (ratio {mono['ratio']:.4f}), second "
@@ -2845,6 +2910,7 @@ def phase_autotune(dev, main):
         tuned, cand = autotune.tune_stream((T, H, W), cfg, table=table,
                                            device=dev)
         chosen = autotune.last_report()["chosen"]
+        arm = arm_of(chosen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (blob, stats), counts = counted(fns, lambda: rt.compress_stream(
@@ -2856,11 +2922,12 @@ def phase_autotune(dev, main):
         assert stats["async_engine"] is cand.async_engine
         want, _ = rt.compress_tiled(u, v, tuned, tuned.tiling, device=dev)
         assert blob == want, f"{tag}: stream bytes != compress_tiled's"
+        assert sl_tag(blob) == arm, f"{tag}: sl_backend {sl_tag(blob)}"
         (ur, vr), dec = counted(fns, lambda: rt.decompress(blob, device=dev))
         check_path_launches(tag, tuned.codec,
-                            {n: counts[n] + dec[n] for n in counts})
+                            {n: counts[n] + dec[n] for n in counts}, arm)
         check_guarantees(tag, u, v, ur, vr, stats, dev)
-        say(f"{tag}: tune_stream chose {chosen} (async "
+        say(f"{tag}: tune_stream chose {chosen} (arm {arm}, async "
             f"{cand.async_engine}); compress_stream(autotune=True) "
             f"{stream_s:.3f} s host clock, bytes == compress_tiled of the "
             f"chosen plan ({len(blob)} B, ratio {stats['ratio']:.4f}, "

@@ -15,7 +15,10 @@ committing.  The chosen plan is returned as an ordinary
 CompressionConfig: the pipeline is then exactly the one a user could
 have configured by hand, so autotuning changes speed, never the bytes a
 given plan produces.  Everything runs on ``device`` (the CUDA device
-unless ``device="cpu"``); the device kind keys the calibration table.
+unless ``device="cpu"``); the device kind keys the calibration table,
+whose coefficients are per (backend, stage).  The backend arm is the SL
+stepper the plan runs and writes in its header: "pallas", "xla" and
+"numpy" on CUDA, "xla" and "numpy" on the CPU (``available_backends``).
 """
 from __future__ import annotations
 
@@ -25,13 +28,22 @@ from typing import Optional
 import numpy as np
 
 from ..core import compressor, ebpolicy, tiling
-from .calibrate import (CalibrationTable, CalibrationTableError,  # noqa: F401
+from .calibrate import (CalibrationTable, CalibrationTableError,
                         calibrate, default_table_path, load_or_calibrate,
                         load_table, save_table)
-from .costmodel import CostModel, Workload, device_kind  # noqa: F401
-from .rate import compress_with_target  # noqa: F401
-from .search import (PlanCandidate, apply, enumerate_candidates,  # noqa: F401
-                     search)
+from .costmodel import CostModel, Workload, device_kind
+from .rate import compress_with_target
+from .search import PlanCandidate, apply, available_backends, \
+    enumerate_candidates, search
+
+__all__ = [
+    "CalibrationTable", "CalibrationTableError", "CostModel",
+    "PlanCandidate", "Workload", "apply", "available_backends",
+    "calibrate", "compress_with_target", "default_table_path",
+    "device_kind", "enumerate_candidates", "explain", "last_report",
+    "load_or_calibrate", "load_table", "save_table", "search",
+    "tune_config", "tune_stream",
+]
 
 # measure-verify the top-k model picks on the real field when it is
 # small enough to rerun cheaply; above the cap measure a temporal
@@ -126,7 +138,7 @@ def tune_config(u, v, cfg, table: Optional[CalibrationTable] = None,
         measure_cb, top_k = None, 0
     pol_spec = _policy_spec_of(cfg)
     ranked = search(shape, model=model, top_k=top_k, measure=measure_cb,
-                    eb_policy=pol_spec)
+                    eb_policy=pol_spec, device=dev)
     chosen = ranked[0]
     _LAST_REPORT = _build_report(shape, False, ranked, chosen, table,
                                  time.perf_counter() - t0,
@@ -150,7 +162,7 @@ def tune_stream(shape, cfg, table: Optional[CalibrationTable] = None,
     pol_spec = _policy_spec_of(cfg)
     ranked = search(tuple(shape), model=model, stream=True,
                     ingest_s=ingest_s_per_frame * shape[0],
-                    eb_policy=pol_spec)
+                    eb_policy=pol_spec, device=device)
     chosen = ranked[0]
     _LAST_REPORT = _build_report(tuple(shape), True, ranked, chosen,
                                  table, time.perf_counter() - t0,

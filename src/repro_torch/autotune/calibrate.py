@@ -8,17 +8,20 @@ read per-stage wall time from the ``span.*`` duration Histograms
 
     t_stage = c0 * n_dispatches + c1 * n_elements
 
-per (device kind, stage) by least squares over the collected
-(dispatches, elements, seconds) samples -- at least two field sizes, so
-c0 and c1 separate.  Tracing also synchronizes the device at the end of
+per (backend, stage) by least squares over the collected (dispatches,
+elements, seconds) samples -- at least two field sizes, so c0 and c1
+separate.  Each backend (SL stepper arm, search.available_backends) runs
+the workload with the ``cfg.backend`` that ``search.apply`` writes for
+it.  Tracing also synchronizes the device at the end of
 each span (``obs.device_sync``), so a span holds its own stage's device
 time.  Each run is warmed once first: on CUDA the warm run also builds
 the kernels at first use, so nvcc time never enters a fit.
 
 Coefficients persist to a versioned JSON table of this package's own
-format; a table of another format version or another device kind is
-refused with a typed ``CalibrationTableError`` (reason "stale" /
-"foreign"), never silently used.  The JAX package's table is refused as
+format, keyed by (device kind, backend, stage); a table of another
+format version (version 1 keyed by device kind, without the backend) or
+another device kind is refused with a typed ``CalibrationTableError``
+(reason "stale" / "foreign"), never silently used.  The JAX package's table is refused as
 "foreign" too: its coefficients price XLA stages, not these.
 """
 from __future__ import annotations
@@ -34,9 +37,10 @@ import numpy as np
 from .. import obs
 from ..core import compressor, tiling
 from . import costmodel
+from .search import available_backends, config_backend
 
 TABLE_FORMAT = "repro_torch-autotune-calib"
-TABLE_VERSION = 1
+TABLE_VERSION = 2
 # the JAX package's table format: never read as this package's
 REFERENCE_FORMAT = "repro-autotune-calib"
 
@@ -70,7 +74,7 @@ class CalibrationTableError(ValueError):
 
 @dataclasses.dataclass
 class CalibrationTable:
-    """Fitted {(device kind, stage): (c0, c1)} for one device kind."""
+    """Fitted {(backend, stage): (c0, c1)} for one device kind."""
 
     device_kind: str
     coeffs: dict
@@ -92,8 +96,8 @@ def save_table(table: CalibrationTable, path: Optional[str] = None) -> str:
         "device_kind": table.device_kind,
         "meta": table.meta,
         "entries": [
-            {"device": kind, "stage": stage, "c0": c0, "c1": c1}
-            for (kind, stage), (c0, c1) in sorted(table.coeffs.items())
+            {"backend": be, "stage": stage, "c0": c0, "c1": c1}
+            for (be, stage), (c0, c1) in sorted(table.coeffs.items())
         ],
     }
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
@@ -146,7 +150,7 @@ def load_table(path: Optional[str] = None, expect_kind: Optional[str] = None,
     coeffs = {}
     try:
         for e in payload["entries"]:
-            coeffs[(e["device"], e["stage"])] = (
+            coeffs[(e["backend"], e["stage"])] = (
                 float(e["c0"]), float(e["c1"]))
     except (KeyError, TypeError, ValueError) as e:
         raise CalibrationTableError(
@@ -198,61 +202,67 @@ def _stage_elems(kind, stage, shape, grid):
     return g.n_units * g.unit_ext_elems
 
 
-def calibrate(shapes=CALIB_SHAPES, eb: float = 1e-2,
+def calibrate(shapes=CALIB_SHAPES, backends=None, eb: float = 1e-2,
               path: Optional[str] = None, save: bool = True,
               device=None) -> CalibrationTable:
     """Run the calibration workload on ``device`` (the CUDA device unless
-    ``device="cpu"``) and fit a CalibrationTable.  With ``save`` the
-    table is persisted to ``path`` (default
+    ``device="cpu"``) once for each of ``backends`` (default
+    ``available_backends(device)``) and fit a CalibrationTable.
+    With ``save`` the table is persisted to ``path`` (default
     ~/.cache/repro_torch/autotune_calib.json)."""
     dev = compressor.resolve_device(device)
+    backends = tuple(backends or available_backends(dev))
     kind = costmodel.device_kind(dev)
     samples = {}
     was_enabled = obs.enabled()
     try:
         obs.enable()
-        for shape in shapes:
-            T, H, W = shape
-            rng = np.random.default_rng(7)
-            base = np.cumsum(
-                rng.normal(size=(T, H, W)).astype(np.float32), axis=0)
-            u, v = base, base[::-1].copy()
-            for kind_run, codec, grid in _workload_runs(shape):
-                cfg = compressor.CompressionConfig(
-                    eb=eb, mode="rel", predictor="mop", fused=True,
-                    codec=codec, track_index=False)
-                tg = None if grid is None else tiling.TileGrid(
-                    tile_h=grid[0], tile_w=grid[1], window_t=grid[2])
+        for be in backends:
+            for shape in shapes:
+                T, H, W = shape
+                rng = np.random.default_rng(7)
+                base = np.cumsum(
+                    rng.normal(size=(T, H, W)).astype(np.float32), axis=0)
+                u, v = base, base[::-1].copy()
+                for kind_run, codec, grid in _workload_runs(shape):
+                    cfg = compressor.CompressionConfig(
+                        eb=eb, mode="rel", predictor="mop",
+                        backend=config_backend(be), fused=True,
+                        codec=codec, track_index=False)
+                    tg = None if grid is None else tiling.TileGrid(
+                        tile_h=grid[0], tile_w=grid[1], window_t=grid[2])
 
-                def run():
-                    if tg is None:
-                        return compressor.compress(u, v, cfg, device=dev)
-                    return tiling.compress_tiled(u, v, cfg, tg, device=dev)
+                    def run():
+                        if tg is None:
+                            return compressor.compress(u, v, cfg,
+                                                       device=dev)
+                        return tiling.compress_tiled(u, v, cfg, tg,
+                                                     device=dev)
 
-                # warm once (kernel builds, caches), then measure a
-                # clean run
-                run()
-                before = obs.stage_durations()
-                run()
-                after = obs.stage_durations()
-                for span, stage in SPAN_STAGES.items():
-                    b = before.get(span, {"count": 0, "sum_s": 0.0})
-                    a = after.get(span, {"count": 0, "sum_s": 0.0})
-                    n = a["count"] - b["count"]
-                    dt = a["sum_s"] - b["sum_s"]
-                    if n <= 0 or dt <= 0:
-                        continue
-                    elems = _stage_elems(kind_run, stage, shape, grid)
-                    samples.setdefault((kind, stage), []).append(
-                        (n, float(elems), dt))
+                    # warm once (kernel builds, caches), then measure a
+                    # clean run
+                    run()
+                    before = obs.stage_durations()
+                    run()
+                    after = obs.stage_durations()
+                    for span, stage in SPAN_STAGES.items():
+                        b = before.get(span, {"count": 0, "sum_s": 0.0})
+                        a = after.get(span, {"count": 0, "sum_s": 0.0})
+                        n = a["count"] - b["count"]
+                        dt = a["sum_s"] - b["sum_s"]
+                        if n <= 0 or dt <= 0:
+                            continue
+                        elems = _stage_elems(kind_run, stage, shape, grid)
+                        samples.setdefault((be, stage), []).append(
+                            (n, float(elems), dt))
     finally:
         obs.enable() if was_enabled else obs.disable()
 
     coeffs = {key: _fit(rows) for key, rows in samples.items()}
     table = CalibrationTable(
         device_kind=kind, coeffs=coeffs,
-        meta={"shapes": [list(s) for s in shapes], "eb": eb,
-              "device": str(dev)})
+        meta={"shapes": [list(s) for s in shapes],
+              "backends": list(backends), "eb": eb, "device": str(dev)})
     if save:
         save_table(table, path)
     return table

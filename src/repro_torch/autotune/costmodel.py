@@ -18,9 +18,16 @@ and memory time at the device kind's peak rates.  Calibration
 until a calibration table exists.
 
 The device of the call fixes what runs (kernels on CUDA, their plain
-versions on the CPU), so coefficients are keyed by (device kind,
-stage) and a candidate carries no backend.  The model never touches
-container bytes: it only orders candidate plans by predicted wall time.
+versions on the CPU) and the candidate's backend which SL stepper runs,
+so coefficients are keyed by (backend, stage), with the device kind on
+the model and on its calibration table.  The CPU seeds are the JAX
+package's, "numpy" rates scaled by ``_NUMPY_RATE_SCALE``, so an
+uncalibrated CPU tune ranks as the reference's does.  The "gpu" seeds
+are one H100 row for all three tags: the SL kernels are under 1 % of an
+encode on the card, so no seed can honestly tell the tags apart, and an
+uncalibrated card tune picks the "numpy" arm by the key tie-break.  The
+model never touches container bytes: it only orders candidate plans by
+predicted wall time.
 """
 from __future__ import annotations
 
@@ -78,6 +85,9 @@ DEVICE_RATES = {
     "gpu": (34e12, 3.35e12, 0.03141e-3 - 0.00644e-3),
     "cpu": (5e10, 2e10, 120e-6),
 }
+# the JAX package's numpy backend skips jit dispatch: cheaper per call,
+# slower per element than fused XLA CPU code (the CPU row only)
+_NUMPY_RATE_SCALE = (0.5, 1.0, 0.15)
 
 
 def device_kind(device=None) -> str:
@@ -88,9 +98,12 @@ def device_kind(device=None) -> str:
         else "cpu"
 
 
-def seed_coeffs(kind: str) -> dict:
-    """Roofline-seeded {stage: (c0, c1)} for one device kind."""
+def seed_coeffs(kind: str, backend: str) -> dict:
+    """Roofline-seeded {stage: (c0, c1)} for one (device kind, backend)."""
     peak_flops, mem_bw, disp = DEVICE_RATES.get(kind, DEVICE_RATES["cpu"])
+    if backend == "numpy" and kind != "gpu":
+        sf, sb, sd = _NUMPY_RATE_SCALE
+        peak_flops, mem_bw, disp = peak_flops * sf, mem_bw * sb, disp * sd
     out = {}
     for stage in STAGES:
         f, b = STAGE_INTENSITY[stage]
@@ -166,43 +179,47 @@ def geometry(wl: Workload, grid) -> Optional[Geometry]:
 class CostModel:
     """Predict per-stage and total encode cost for a candidate.
 
-    ``coeffs`` maps (device kind, stage) -> (c0, c1); missing entries
-    fall back to the roofline seeds of the model's kind.
+    ``coeffs`` maps (backend, stage) -> (c0, c1); missing entries fall
+    back to the roofline seeds of the model's device kind.
     """
 
     def __init__(self, coeffs: Optional[dict] = None,
                  kind: Optional[str] = None):
         self.kind = kind or device_kind()
         self.coeffs = dict(coeffs or {})
-        self._seeds = None
+        self._seeds = {}
 
-    def coeff(self, stage: str):
-        c = self.coeffs.get((self.kind, stage))
+    def coeff(self, backend: str, stage: str):
+        c = self.coeffs.get((backend, stage))
         if c is not None:
             return c
-        if self._seeds is None:
-            self._seeds = seed_coeffs(self.kind)
-        return self._seeds[stage]
+        seeds = self._seeds.get(backend)
+        if seeds is None:
+            seeds = self._seeds[backend] = seed_coeffs(self.kind, backend)
+        return seeds[stage]
 
-    def _term(self, stage: str, n_disp: float, n_elems: float) -> float:
-        c0, c1 = self.coeff(stage)
+    def _term(self, backend: str, stage: str, n_disp: float,
+              n_elems: float) -> float:
+        c0, c1 = self.coeff(backend, stage)
         return c0 * n_disp + c1 * n_elems
 
     def predict(self, cand, wl: Workload) -> dict:
         """{"stages": {stage: seconds}, "total": seconds} for one
         candidate (search.PlanCandidate) on one workload."""
+        be = cand.backend
         rounds = max(wl.verify_rounds, 1.0)
         stages = {}
         if cand.grid is None:
             # monolithic fused pipeline: one dispatch per stage, the
             # verify loop re-dispatches per round
             e = wl.elems
-            stages["derive_eb"] = self._term("derive_eb", 1, e)
-            stages["quantize_predict"] = self._term("quantize_predict", 1, e)
+            stages["derive_eb"] = self._term(be, "derive_eb", 1, e)
+            stages["quantize_predict"] = self._term(
+                be, "quantize_predict", 1, e)
             stages["verify_round"] = self._term(
-                "verify_round", rounds, rounds * e)
-            stages["symbolize"] = self._term("symbolize", 2, e)
-            stages["pack"] = self._term("pack", 2, e)
+                be, "verify_round", rounds, rounds * e)
+            stages["symbolize"] = self._term(be, "symbolize", 2, e)
+            stages["pack"] = self._term(be, "pack", 2, e)
             total = sum(stages.values())
         else:
             g = geometry(wl, cand.grid)
@@ -218,21 +235,21 @@ class CostModel:
             else:
                 n_batches = g.n_units
             stages["tiled_derive"] = self._term(
-                "tiled_derive", g.n_windows, ext_total)
+                be, "tiled_derive", g.n_windows, ext_total)
             stages["tiled_verify"] = self._term(
-                "tiled_verify", rounds * n_batches, rounds * ext_total)
+                be, "tiled_verify", rounds * n_batches, rounds * ext_total)
             stages["tiled_encode"] = self._term(
-                "tiled_encode", n_batches, ext_total)
+                be, "tiled_encode", n_batches, ext_total)
             if cand.codec == "device":
                 stages["tiled_entropy"] = self._term(
-                    "tiled_entropy", g.n_windows * g.n_sig_groups,
+                    be, "tiled_entropy", g.n_windows * g.n_sig_groups,
                     owned_total)
                 # container write still runs, minus the host Huffman
                 stages["tiled_write"] = 0.25 * self._term(
-                    "tiled_write", g.n_units, owned_total)
+                    be, "tiled_write", g.n_units, owned_total)
             else:
                 stages["tiled_write"] = self._term(
-                    "tiled_write", g.n_units, owned_total)
+                    be, "tiled_write", g.n_units, owned_total)
             total = sum(stages.values())
             if wl.stream:
                 if cand.async_engine:

@@ -35,7 +35,10 @@ device codec, 6 with an adaptive policy, the track index in its footer
 unless ``track_index=False``); ``decompress`` reads it too.
 
 ``autotune=True`` runs the plan the cost model picks for the field
-(repro_torch.autotune: the same bytes as that plan set by hand);
+(repro_torch.autotune: the same bytes as that plan set by hand); the plan
+includes the SL stepper (the backend arm: "pallas", "xla" or "numpy" on
+CUDA, "xla" or "numpy" on the CPU), which replaces the caller's
+``backend`` and is the container's ``sl_backend``;
 ``target_ratio=`` searches a two-valued adaptive policy that reaches the
 ratio with the trajectory-covering units kept at ``eb``
 (autotune/rate.py).

@@ -1,9 +1,11 @@
 """Autotuning, rate-targeted compression, the baselines and the metrics
 on the card.
 
-A calibration on the card fits all ten stages; a tuned plan, a
-target-ratio search and the sz3-like / cpsz-like baselines write on the
-card the bytes they write on the CPU; ``false_cases`` and ``evaluate``
+A calibration on the card fits all ten stages for each of its three
+backend arms (SL steppers); a tuned plan (with a table favouring each
+arm in turn: its container's ``sl_backend`` is that arm and only its
+K3 / K4 kernels launch), a target-ratio search and the sz3-like /
+cpsz-like baselines write on the card the bytes they write on the CPU; ``false_cases`` and ``evaluate``
 run on the card by default and agree with the CPU.  These tests need a
 CUDA device and nvcc; elsewhere they skip.  The file imports no JAX:
 
@@ -19,8 +21,9 @@ import torch
 import repro_torch
 from repro_torch import autotune, baselines
 from repro_torch.autotune import costmodel
-from repro_torch.core import metrics, trajectory
+from repro_torch.core import encode, metrics, trajectory
 from repro_torch.data import synthetic
+from repro_torch.kernels.semilagrange import kernel as k3
 
 pytestmark = pytest.mark.cuda
 
@@ -38,19 +41,36 @@ def _field(shape, seed=3):
     return base, base[::-1].copy()
 
 
-def _table(kind, mono):
-    """A fixed table; ``mono`` scales the monolithic stages."""
+ARMS = ("pallas", "xla", "numpy")
+
+
+def _table(kind, mono, favour=None):
+    """A fixed table in (backend, stage) keys over the card's arms;
+    ``mono`` scales the monolithic stages, the arm ``favour`` costs half
+    of the others (None: a tie, which the key breaks to "numpy")."""
     return autotune.CalibrationTable(device_kind=kind, coeffs={
-        (kind, s): (1e-4 * (i + 1) * (mono if i < 5 else 1.0),
-                    1e-8 * (i + 2) * (mono if i < 5 else 1.0))
-        for i, s in enumerate(costmodel.STAGES)})
+        (be, s): (1e-4 * (i + 1) * (mono if i < 5 else 1.0)
+                  * (0.5 if be == favour else 1.0),
+                  1e-8 * (i + 2) * (mono if i < 5 else 1.0)
+                  * (0.5 if be == favour else 1.0))
+        for be in ARMS for i, s in enumerate(costmodel.STAGES)})
+
+
+def _sl_wrappers():
+    """{name: wrapper} of K3, its unit entry and K4 in every variant."""
+    return {f"{b}{x}": getattr(k3, f"{b}{x}")
+            for b in ("sl_decode", "sl_decode_units", "sl_step_batched")
+            for x in k3.SUFFIX.values()}
 
 
 def test_calibration_on_the_card_fits_every_stage(dev, tmp_path):
     path = str(tmp_path / "calib.json")
     table = autotune.calibrate(path=path, device=dev)
-    assert table.device_kind == "gpu"
-    assert set(table.coeffs) == {("gpu", s) for s in costmodel.STAGES}
+    assert table.device_kind == "gpu" and table.meta["backends"] == list(ARMS)
+    assert autotune.available_backends(dev) == ARMS
+    assert set(table.coeffs) == {(be, s) for be in ARMS
+                                 for s in costmodel.STAGES}
+    assert len(table.coeffs) == 30
     assert all(c0 >= 0 and c1 >= 0 for c0, c1 in table.coeffs.values())
     assert autotune.load_table(path, device=dev).coeffs == table.coeffs
     with pytest.raises(autotune.CalibrationTableError) as ei:
@@ -72,6 +92,29 @@ def test_tuned_bytes_on_the_card_equal_the_cpu(dev, mono):
     assert card == cpu
 
 
+@pytest.mark.parametrize("favour", ARMS)
+def test_tuned_arm_bytes_on_the_card_equal_the_cpu(dev, favour):
+    """A table favouring one arm: the tuned plan runs that arm's stepper
+    kernels only, its header names the arm, and the CPU (the plain
+    versions; f32 for "pallas") writes the same bytes."""
+    u, v = _field((6, 32, 32))
+    cfg = repro_torch.CompressionConfig(eb=1e-2)
+    tuned = autotune.tune_config(u, v, cfg, table=_table("gpu", 1.0, favour),
+                                 measure=False, device=dev)
+    assert autotune.last_report()["chosen"] == f"mono/{favour}/host"
+    assert tuned.backend == (None if favour == "numpy" else favour)
+    fns = _sl_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    card, _ = repro_torch.compress(u, v, tuned, device=dev)
+    ran = {n for n, fn in fns.items() if fn.launches}
+    sfx = k3.SUFFIX[favour]
+    assert ran == {f"sl_step_batched{sfx}", f"sl_decode{sfx}"}, ran
+    assert encode.unpack(card)[0]["sl_backend"] == favour
+    cpu, _ = repro_torch.compress(u, v, tuned, device="cpu")
+    assert card == cpu
+
+
 def test_stream_autotune_on_the_card_equals_the_cpu(dev, monkeypatch):
     u, v = _field((8, 32, 48))
     cfg = repro_torch.CompressionConfig(eb=1e-2)
@@ -79,7 +122,7 @@ def test_stream_autotune_on_the_card_equals_the_cpu(dev, monkeypatch):
     for d, kind in ((dev, "gpu"), ("cpu", "cpu")):
         monkeypatch.setattr(autotune, "load_or_calibrate",
                             lambda path=None, device=None, k=kind:
-                            _table(k, 1.0))
+                            _table(k, 1.0, "xla"))
         out[kind], _ = repro_torch.compress_stream(
             zip(u, v), cfg, autotune=True, n_frames_hint=8, device=d)
     assert out["gpu"] == out["cpu"]
