@@ -1273,62 +1273,6 @@ class Recorder:
                 for n, ev in self.events.items()}
 
 
-class StageClock:
-    """Host-clock time per pipeline stage for one traced run: each stage
-    function is wrapped with a device synchronize on both sides (so the
-    sum exceeds an untraced run by the synchronizations)."""
-
-    STAGES = [("fixedpoint", "repro_torch.core.fixedpoint", "to_fixed"),
-              ("eb_derive", "repro_torch.core.ebound", "derive_vertex_eb"),
-              ("quantize_predict", "repro_torch.core.pipeline",
-               "_encode_field"),
-              # the verify simulation's and decompress's SL decode
-              ("decode_fields", "repro_torch.core.backend", "sl_decode"),
-              ("verify_check", "repro_torch.core.pipeline", "_verify_round"),
-              ("symbolize", "repro_torch.core.encode", "field_sections"),
-              # the device codec's symbolize + code build + bitpack, and
-              # its three parts (nested in it)
-              ("device_codec", "repro_torch.core.entropy",
-               "field_sections_device"),
-              ("dc_symbolize", "repro_torch.core.entropy", "symbolize"),
-              ("dc_tables", "repro_torch.core.entropy", "build_tables_batch"),
-              ("dc_bitpack", "repro_torch.core.entropy", "bitpack"),
-              ("pack", "repro_torch.core.encode", "pack"),
-              ("unpack", "repro_torch.core.encode", "unpack"),
-              # the CPTH1 Huffman decode (nested in unpack)
-              ("huffman_decode", "repro_torch.core.entropy", "decode_symbols"),
-              ("parse", "repro_torch.core.encode", "parse_field_sections")]
-
-    def __init__(self):
-        self.seconds = {}
-        self._saved = []
-
-    def __enter__(self):
-        import importlib
-
-        for name, mod, attr in self.STAGES:
-            m = importlib.import_module(mod)
-            orig = getattr(m, attr)
-            self._saved.append((m, attr, orig))
-            setattr(m, attr, self._wrap(name, orig))
-        return self
-
-    def __exit__(self, *exc):
-        for m, attr, orig in self._saved:
-            setattr(m, attr, orig)
-
-    def _wrap(self, name, orig):
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig(*args, **kw)
-            torch.cuda.synchronize()
-            self.seconds[name] = self.seconds.get(name, 0.0) \
-                + time.perf_counter() - t0
-            return out
-        return timed
-
-
 def device_profile(fn):
     """Run ``fn()`` under torch.profiler: (wall s, summed device-side
     self time s, top device ops [(name, ms, calls)]).  The device sum is
@@ -1769,25 +1713,29 @@ def check_guarantees(tag, u, v, ur, vr, stats, dev, bound=None):
         f"{fc['FC_t']} FC_s {fc['FC_s']} (CP_t {fc['CP_t_orig']})")
 
 
-class TiledClock(StageClock):
-    """Host-clock seconds per stage of one tiled compress -> decompress
-    (each stage synchronized on both sides; the verify chunks hold their
-    encode, and unit_payloads its encode and track-index segments)."""
+def traced_run(u, v, cfg, dev):
+    """One compress -> decompress with ``repro_torch.obs`` on: the bytes,
+    host-clock seconds of each, and the seconds of each of the program's
+    spans (those ending on device work synchronize first)."""
+    import repro_torch as rt
+    from repro_torch import obs
 
-    STAGES = [
-        ("derive_window", "repro_torch.core.tiling", "_derive_window"),
-        ("verify_chunk", "repro_torch.core.tiling", "_round_chunk"),
-        ("encode_chunk", "repro_torch.core.tiling", "_encode_chunk"),
-        ("index_segments", "repro_torch.core.tiling",
-         "_window_segment_records"),
-        ("unit_payloads", "repro_torch.core.tiling", "_unit_payloads"),
-        ("entropy_fragments", "repro_torch.core.tiling",
-         "_attach_entropy_fragments"),
-        ("write_unit", "repro_torch.core.tiling", "_write_unit"),
-        ("finish_header", "repro_torch.core.tiling", "_finish_header"),
-        # a full decode reads unit by unit past the decoded-unit cache
-        ("decode_units", "repro_torch.core.pipeline", "decode_payload"),
-    ]
+    obs.enable()
+    obs.reset()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob, _ = rt.compress(u, v, cfg, device=dev)
+        enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.decompress(blob, device=dev)
+        torch.cuda.synchronize()
+        dec = time.perf_counter() - t0
+        spans = obs.stage_durations()
+    finally:
+        obs.disable()
+    return blob, enc, dec, {k: round(d["sum_s"], 4)
+                            for k, d in spans.items()}
 
 
 def run_tiled(dev, tag, u, v, cfg, fns):
@@ -1821,17 +1769,9 @@ def run_tiled(dev, tag, u, v, cfg, fns):
     peak = torch.cuda.max_memory_allocated()
     assert blob2 == blob and np.array_equal(ur2, ur) \
         and np.array_equal(vr2, vr), f"{tag}: runs differ"
-    with TiledClock() as clock:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blob3, _ = rt.compress(u, v, cfg, device=dev)
-        traced_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rt.decompress(blob3, device=dev)
-        traced_dec = time.perf_counter() - t0
+    _, traced_enc, traced_dec, stages = traced_run(u, v, cfg, dev)
     say(f"{tag}: traced run encode {traced_enc:.3f} s, decode "
-        f"{traced_dec:.3f} s; stage seconds "
-        f"{json.dumps({k: round(x, 4) for k, x in clock.seconds.items()})}")
+        f"{traced_dec:.3f} s; span seconds {json.dumps(stages)}")
     say(f"{tag}: launches compress {json.dumps(enc_counts)}, decompress "
         f"{json.dumps(dec_counts)}")
     return {"blob": blob, "stats": stats, "dec": (ur, vr),
@@ -1873,19 +1813,9 @@ def run_main(dev, tag, u, v, cfg, fns):
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    with StageClock() as clock:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blob3, _ = rt.compress(u, v, cfg, device=dev)
-        torch.cuda.synchronize()
-        traced_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rt.decompress(blob3, device=dev)
-        torch.cuda.synchronize()
-        traced_dec = time.perf_counter() - t0
+    blob3, traced_enc, traced_dec, stages = traced_run(u, v, cfg, dev)
     say(f"{tag}: traced run encode {traced_enc:.3f} s, "
-        f"decode {traced_dec:.3f} s; stage seconds "
-        f"{json.dumps({k: round(x, 4) for k, x in clock.seconds.items()})}")
+        f"decode {traced_dec:.3f} s; span seconds {json.dumps(stages)}")
     for what, fn in (("compress", lambda: rt.compress(u, v, cfg, device=dev)),
                      ("decompress", lambda: rt.decompress(blob, device=dev))):
         wall, busy, rows = device_profile(fn)

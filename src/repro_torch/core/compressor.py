@@ -66,7 +66,7 @@ import torch
 
 from . import (backend, ebpolicy, encode, fixedpoint, pipeline, predictors,
                quantize)
-from .. import perfflags
+from .. import obs, perfflags
 
 FORMAT_VERSION = pipeline.FORMAT_VERSION
 
@@ -181,17 +181,19 @@ def compress(u, v, cfg: Optional[CompressionConfig] = None, *,
     dev = resolve_device(device)
     refuse_plain_on_card(cfg, dev)
     t0 = time.perf_counter()
-    u, v = _as_fields(u, v)
-    pol = ebpolicy.normalize(cfg.eb_policy)
-    factor = _eb_factor(u, v, cfg)
-    # the plan's global (tau, xi_unit) derive from the policy's LOOSEST
-    # bound; the per-vertex caps only clamp down from there
-    eb_abs = float(cfg.eb if pol is None else ebpolicy.max_bound(pol)) \
-        * factor
-    scale, ufp, vfp = fixedpoint.to_fixed(u, v, cfg.fixed_bits)
-    fused = perfflags.fused_default() if cfg.fused is None else cfg.fused
-    ex = pipeline.PlanExecutor(pipeline.plan_from_cfg(
-        cfg, scale, eb_abs, "fused" if fused else "legacy"), dev)
+    with obs.span("compressor.prepare") as sp:
+        u, v = _as_fields(u, v)
+        sp.set(shape=list(u.shape))
+        pol = ebpolicy.normalize(cfg.eb_policy)
+        factor = _eb_factor(u, v, cfg)
+        # the plan's global (tau, xi_unit) derive from the policy's
+        # LOOSEST bound; the per-vertex caps only clamp down from there
+        eb_abs = float(cfg.eb if pol is None
+                       else ebpolicy.max_bound(pol)) * factor
+        scale, ufp, vfp = fixedpoint.to_fixed(u, v, cfg.fixed_bits)
+        fused = perfflags.fused_default() if cfg.fused is None else cfg.fused
+        ex = pipeline.PlanExecutor(pipeline.plan_from_cfg(
+            cfg, scale, eb_abs, "fused" if fused else "legacy"), dev)
     if pol is None:
         enc = pipeline.compress_field(ex, u, v, ufp, vfp)
     else:

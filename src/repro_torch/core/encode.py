@@ -49,6 +49,7 @@ import zlib
 
 import numpy as np
 
+from .. import obs
 from . import _msgpack
 
 try:
@@ -500,18 +501,21 @@ def _decode_section(name: str, meta: dict, raw: bytes) -> np.ndarray:
 
 def unpack(blob: bytes):
     """Container bytes -> (header dict, {name: numpy array})."""
-    magic = bytes(blob[: len(MAGIC)])
-    if magic == MAGIC_TILED:
-        raise ContainerError(
-            "CPTT1 is a tiled container of unit frames: read it with "
-            "repro_torch.decompress (core/tiling.py::decompress_tiled) or "
-            "tiled_header / read_tiled_unit")
-    if magic == MAGIC_HUF:
-        return _parse_payload(bytes(blob[len(MAGIC_HUF):]))
-    if magic not in (MAGIC, MAGIC_ZLIB):
-        raise ContainerError("not a CPTZ/CPTL/CPTH container (bad magic)")
-    codec = "zstd" if magic == MAGIC else "zlib"
-    return _parse_payload(codec_decompress(bytes(blob[len(MAGIC):]), codec))
+    with obs.span("decode.unpack", bytes=len(blob)):
+        magic = bytes(blob[: len(MAGIC)])
+        if magic == MAGIC_TILED:
+            raise ContainerError(
+                "CPTT1 is a tiled container of unit frames: read it with "
+                "repro_torch.decompress (core/tiling.py::decompress_tiled) "
+                "or tiled_header / read_tiled_unit")
+        if magic == MAGIC_HUF:
+            return _parse_payload(bytes(blob[len(MAGIC_HUF):]))
+        if magic not in (MAGIC, MAGIC_ZLIB):
+            raise ContainerError(
+                "not a CPTZ/CPTL/CPTH container (bad magic)")
+        codec = "zstd" if magic == MAGIC else "zlib"
+        return _parse_payload(codec_decompress(bytes(blob[len(MAGIC):]),
+                                               codec))
 
 
 def _parse_payload(payload: bytes):
@@ -897,8 +901,6 @@ def fsync_timed(fileno: int) -> None:
     """``os.fsync`` counted (``journal.fsync``) and, with tracing on,
     timed (``journal.fsync_ns``): every durability point of the stream
     path goes through here."""
-    from .. import obs
-
     obs.counter("journal.fsync").add(1)
     if obs.enabled():
         t0 = time.perf_counter_ns()

@@ -81,19 +81,21 @@ def build_tables_batch(hist) -> tuple[np.ndarray, np.ndarray]:
 def decode_symbols(lengths, data, n) -> np.ndarray:
     """Inverse of the bitpack: lengths uint8[256] (from the section index)
     + packed bits -> uint8 symbols.  Host only."""
-    if n == 0:
-        return np.empty(0, dtype=np.uint8)
-    ln = np.asarray(lengths, np.uint8).astype(np.int32)
-    ml = int(ln.max())
-    if ml == 0 or ml > L_MAX:
-        raise ContainerError(
-            f"invalid huffman table: max code length {ml} "
-            f"(expected 1..{L_MAX})")
-    # Kraft inequality: a corrupt table would overflow the peek tables
-    kraft = int((np.int64(1) << (ml - ln[ln > 0])).sum())
-    if kraft > (1 << ml):
-        raise ContainerError("invalid huffman table: Kraft sum exceeds 1")
-    return huffman_decode(ln, data, n)
+    with obs.span("decode.huffman", symbols=n):
+        if n == 0:
+            return np.empty(0, dtype=np.uint8)
+        ln = np.asarray(lengths, np.uint8).astype(np.int32)
+        ml = int(ln.max())
+        if ml == 0 or ml > L_MAX:
+            raise ContainerError(
+                f"invalid huffman table: max code length {ml} "
+                f"(expected 1..{L_MAX})")
+        # Kraft inequality: a corrupt table would overflow the peek tables
+        kraft = int((np.int64(1) << (ml - ln[ln > 0])).sum())
+        if kraft > (1 << ml):
+            raise ContainerError(
+                "invalid huffman table: Kraft sum exceeds 1")
+        return huffman_decode(ln, data, n)
 
 
 # ----------------------------------------------------------------------

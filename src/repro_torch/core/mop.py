@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from .. import obs
+
 CLIP = 255           # folded residual clip; >= CLIP is an escape symbol
 LAMBDA = 16.0        # bits charged per escaped (raw-stored) sample
 GATE = 3e-4          # relative-improvement gate for selecting SL
@@ -55,31 +57,34 @@ def _rate(hist: torch.Tensor, block: int) -> torch.Tensor:
 def select(res3_u, res3_v, ressl_u, ressl_v, block: int) -> torch.Tensor:
     """Per-(frame, tile) predictor choice: (T, nbi, nbj) bool on the host
     CPU, True selects SL."""
-    T, H, W = res3_u.shape
-    tid, nbi, nbj = _tile_ids(T, H, W, block, res3_u.device)
-    n_bins = T * nbi * nbj * (CLIP + 1)
-    base = (tid * (CLIP + 1)).reshape(-1)
+    with obs.span("mop.select") as sp:
+        T, H, W = res3_u.shape
+        tid, nbi, nbj = _tile_ids(T, H, W, block, res3_u.device)
+        sp.set(tiles=T * nbi * nbj)
+        n_bins = T * nbi * nbj * (CLIP + 1)
+        base = (tid * (CLIP + 1)).reshape(-1)
 
-    def hist_pair(ru, rv):
-        h = torch.zeros(n_bins, dtype=torch.int32, device=ru.device)
-        for r in (ru, rv):
-            # the reference's scatter-add semantics: a negative key (the
-            # fold of a non-finite value's residual wraps) is wrapped once
-            # by n_bins, and a key still out of range is dropped (counted
-            # in one spare bin past the end, which keeps it sync-free)
-            key = base + torch.clamp(fold(r), max=CLIP).reshape(-1)
-            key = torch.where(key < 0, key + n_bins, key)
-            key = torch.where((key >= 0) & (key < n_bins), key, n_bins)
-            h += torch.bincount(key, minlength=n_bins + 1)[:n_bins].to(
-                torch.int32)
-        return h.reshape(-1, CLIP + 1).cpu()
+        def hist_pair(ru, rv):
+            h = torch.zeros(n_bins, dtype=torch.int32, device=ru.device)
+            for r in (ru, rv):
+                # the reference's scatter-add semantics: a negative key
+                # (the fold of a non-finite value's residual wraps) is
+                # wrapped once by n_bins, and a key still out of range is
+                # dropped (counted in one spare bin past the end, which
+                # keeps it sync-free)
+                key = base + torch.clamp(fold(r), max=CLIP).reshape(-1)
+                key = torch.where(key < 0, key + n_bins, key)
+                key = torch.where((key >= 0) & (key < n_bins), key, n_bins)
+                h += torch.bincount(key, minlength=n_bins + 1)[:n_bins].to(
+                    torch.int32)
+            return h.reshape(-1, CLIP + 1).cpu()
 
-    r3 = _rate(hist_pair(res3_u, res3_v), block)
-    rsl = _rate(hist_pair(ressl_u, ressl_v), block)
-    improve = (r3 - rsl) / torch.clamp(r3, min=1e-12)
-    use_sl = (improve > GATE).reshape(T, nbi, nbj)
-    use_sl[0] = False  # no previous frame at t = 0
-    return use_sl
+        r3 = _rate(hist_pair(res3_u, res3_v), block)
+        rsl = _rate(hist_pair(ressl_u, ressl_v), block)
+        improve = (r3 - rsl) / torch.clamp(r3, min=1e-12)
+        use_sl = (improve > GATE).reshape(T, nbi, nbj)
+        use_sl[0] = False  # no previous frame at t = 0
+        return use_sl
 
 
 def assemble(res3: torch.Tensor, ressl: torch.Tensor, blockmap: torch.Tensor,

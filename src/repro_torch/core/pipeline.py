@@ -428,28 +428,34 @@ def decode_payload(ex: PlanExecutor, shape, sections):
     """sections -> reconstructed (u, v) float32 numpy arrays."""
     p = ex.plan
     dev = ex.device
-    res_u, res_v, bm, ll = encode.parse_field_sections(sections, shape)
-    T, H, W = shape
-    if bm.shape != (T, -(-H // p.block), -(-W // p.block)):
-        raise encode.ContainerError(
-            f"blockmap shape {list(bm.shape)} does not match the field "
-            f"{list(shape)} in {p.block}-blocks")
-    xu, xv = backend.sl_decode(
-        torch.as_tensor(res_u, device=dev), torch.as_tensor(res_v, device=dev),
-        bm, p.block, *ex._sl_args())
-    n_ll = int(ll.sum())
-    u_raw = np.zeros(shape, dtype=np.float32)
-    v_raw = np.zeros(shape, dtype=np.float32)
-    for raw, name in ((u_raw, "u_ll"), (v_raw, "v_ll")):
-        vals = sections.get(name)
-        if vals is None or vals.shape != (n_ll,):
+    with obs.span("decode.parse"):
+        res_u, res_v, bm, ll = encode.parse_field_sections(sections, shape)
+        T, H, W = shape
+        if bm.shape != (T, -(-H // p.block), -(-W // p.block)):
             raise encode.ContainerError(
-                f"section {name!r} does not hold the {n_ll} lossless values")
-        raw[ll] = vals
-    u_rec, v_rec = _reconstruct(
-        xu, xv, p.scale, p.xi_unit, torch.as_tensor(ll, device=dev),
-        torch.as_tensor(u_raw, device=dev), torch.as_tensor(v_raw, device=dev))
-    return u_rec.cpu().numpy(), v_rec.cpu().numpy()
+                f"blockmap shape {list(bm.shape)} does not match the field "
+                f"{list(shape)} in {p.block}-blocks")
+    with obs.span("decode.sl", blocks=int(np.count_nonzero(bm))):
+        xu, xv = backend.sl_decode(
+            torch.as_tensor(res_u, device=dev),
+            torch.as_tensor(res_v, device=dev), bm, p.block, *ex._sl_args())
+        obs.device_sync(xu)
+    with obs.span("decode.reconstruct"):
+        n_ll = int(ll.sum())
+        u_raw = np.zeros(shape, dtype=np.float32)
+        v_raw = np.zeros(shape, dtype=np.float32)
+        for raw, name in ((u_raw, "u_ll"), (v_raw, "v_ll")):
+            vals = sections.get(name)
+            if vals is None or vals.shape != (n_ll,):
+                raise encode.ContainerError(
+                    f"section {name!r} does not hold the {n_ll} lossless "
+                    "values")
+            raw[ll] = vals
+        u_rec, v_rec = _reconstruct(
+            xu, xv, p.scale, p.xi_unit, torch.as_tensor(ll, device=dev),
+            torch.as_tensor(u_raw, device=dev),
+            torch.as_tensor(v_raw, device=dev))
+        return u_rec.cpu().numpy(), v_rec.cpu().numpy()
 
 
 def decode_field_blob(ex: PlanExecutor, header: dict, sections: dict):
@@ -583,11 +589,14 @@ def compress_field(ex: PlanExecutor, u, v, ufp, vfp, eb_cap=None,
     dev = ex.device
     T, H, W = u.shape
     shape = (T, H, W)
-    tabs = ex.tables(H, W)
-    ufp_d = torch.as_tensor(ufp, device=dev)
-    vfp_d = torch.as_tensor(vfp, device=dev)
-    u_d = torch.as_tensor(u, device=dev)
-    v_d = torch.as_tensor(v, device=dev)
+    with obs.span("pipeline.upload", bytes=ufp.nbytes + vfp.nbytes
+                  + u.nbytes + v.nbytes):
+        tabs = ex.tables(H, W)
+        ufp_d = torch.as_tensor(ufp, device=dev)
+        vfp_d = torch.as_tensor(vfp, device=dev)
+        u_d = torch.as_tensor(u, device=dev)
+        v_d = torch.as_tensor(v, device=dev)
+        obs.device_sync(v_d)
     with obs.span("pipeline.derive_eb", shape=list(shape)):
         eb_vertex, slice0, slab0 = ebound.derive_vertex_eb(
             ufp_d, vfp_d, int(max(p.tau, 1)))
@@ -674,7 +683,8 @@ def field_header(plan: PipelinePlan, shape) -> dict:
 def pack_field(ex: PlanExecutor, u, v, enc: FieldEncode, t0: float):
     """Symbolize + pack + stats for a full-field encode."""
     p = ex.plan
-    lossless_np = enc.lossless.cpu().numpy()
+    with obs.span("pipeline.download", bytes=enc.lossless.numel()):
+        lossless_np = enc.lossless.cpu().numpy()
     with obs.span("pipeline.symbolize", codec=p.codec):
         if p.codec == "device":
             sections = entropy.field_sections_device(

@@ -13,7 +13,9 @@ take down the pipeline.
 Queue depths and other sampled series are counter events
 (``"ph": "C"``); threads self-label with metadata events
 (``"ph": "M"``/``thread_name``).  Timestamps are microseconds since an
-import-time ``perf_counter_ns`` anchor, the unit Perfetto expects.
+import-time ``perf_counter_ns`` anchor, the unit Perfetto expects;
+``zero_unix_us()`` places that anchor in Unix time, the axis
+``torch.profiler`` stamps its host and device events on.
 
 The buffer is bounded (``MAX_EVENTS``); overflow drops new events and
 counts the drops, so a runaway trace degrades to missing tail data
@@ -141,6 +143,17 @@ class NoopSpan:
 
 
 NOOP = NoopSpan()
+
+
+def zero_unix_us() -> float:
+    """Unix time, in microseconds, of the trace's zero: an event's
+    ``ts`` plus this is its start on ``torch.profiler``'s axis.  Both
+    clocks are read at the call, so a step of the wall clock since
+    import does not carry into it."""
+    a = time.perf_counter_ns()
+    wall = time.time_ns()
+    b = time.perf_counter_ns()
+    return (wall - ((a + b) // 2 - _T0)) / 1e3
 
 
 def current_span():

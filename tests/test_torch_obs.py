@@ -9,7 +9,9 @@ pytest.importorskip("torch")
 
 import collections
 import json
+import struct
 import threading
+import time
 
 import numpy as np
 import torch
@@ -20,6 +22,7 @@ from repro.obs import trace as r_trace
 from repro.core import TileGrid, compress_tiled
 import repro_torch
 from repro_torch import obs
+from repro_torch.core import _msgpack, encode
 from repro_torch.obs import metrics, trace
 
 CFG = dict(eb=1e-2, mode="rel", predictor="mop", verify=True, fused=True)
@@ -250,10 +253,20 @@ def _rounds_counter(mod):
     return snap["value"] if snap else 0
 
 
+def _port_only_spans(spans):
+    """The spans of a port's monolithic MoP compress that the reference
+    does not record: the host set-up, the uploads, the lossless mask's
+    download and the MoP rate model, with their counts."""
+    return {"compressor.prepare": 1, "pipeline.upload": 1,
+            "pipeline.download": 1,
+            "mop.select": spans["pipeline.quantize_predict"]}
+
+
 @pytest.mark.parametrize("codec", ["host", "device"])
 def test_spans_and_rounds_match_reference(obs_state, codec):
-    """The same compress records the same span names and counts and the
-    same ``pipeline.verify_rounds`` in both packages."""
+    """The same compress records every span of the reference with the
+    same count and the same ``pipeline.verify_rounds`` in both packages;
+    the port's other spans are exactly ``_port_only_spans``."""
     u, v = _large_magnitude_field()
     kw = dict(eb=6.0, mode="abs", codec=codec)
     obs.enable()
@@ -276,6 +289,9 @@ def test_spans_and_rounds_match_reference(obs_state, codec):
                         if e["name"] == "pipeline.verify_round"
                         and e["tid"] == threading.get_ident()]
         assert out["n_bad"] == st["verify_bad_counts"]
+    extra = {k: n for k, n in got["spans"].items() if k not in want["spans"]}
+    assert extra == _port_only_spans(got["spans"])
+    got["spans"] = {k: n for k, n in got["spans"].items() if k not in extra}
     assert got == want
     assert got["rounds"] >= 1
     assert got["spans"]["pipeline.verify_round"] == got["rounds"] + 1
@@ -311,3 +327,177 @@ def test_run_report_tiled_not_ported(small_field):
     rep = obs.run_report(blob)
     assert rep["kind_bytes_total"] == len(blob)
     assert rep == r_obs.run_report(blob)
+
+
+# ----------------------------------------------------------------------
+# the port's own spans: host set-up and copies, mop.select, the decode
+# ----------------------------------------------------------------------
+
+# a small field whose MoP picks SL blocks, so decode.sl steps some
+ADV = dict(eb=1e-2, mode="rel", predictor="mop", dt=0.05, dx=2.0 / 63,
+           dy=1.0 / 47)
+
+
+def _advective():
+    from repro_torch.data import synthetic
+
+    return synthetic.vortex_street(T=6, H=48, W=64)
+
+
+def _my_spans():
+    me = threading.get_ident()
+    return [e for e in obs.trace_events() if e["ph"] == "X"
+            and e["tid"] == me]
+
+
+def _inside(inner, outer):
+    return outer["ts"] <= inner["ts"] and \
+        inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1e-3
+
+
+def _huffman_sections(blob):
+    """Names of a CPTH1 container's Huffman-coded sections."""
+    if blob[:len(encode.MAGIC_HUF)] != encode.MAGIC_HUF:
+        return []
+    m = len(encode.MAGIC_HUF)
+    (hlen,) = struct.unpack("<I", blob[m: m + 4])
+    header = _msgpack.unpackb(blob[m + 4: m + 4 + hlen])
+    return [k for k, meta in header["sections"].items()
+            if meta.get("enc") == "huff"]
+
+
+@pytest.mark.parametrize("codec", ["host", "device"])
+def test_write_spans_on_the_calling_thread(obs_state, codec):
+    """A monolithic compress records the set-up, the uploads and the
+    mask's download once each and ``mop.select`` once inside each
+    ``pipeline.quantize_predict``, on the caller's thread; the uploads'
+    span counts the host bytes copied."""
+    u, v = _advective()
+    obs.enable()
+    trace.reset()
+    repro_torch.compress(u, v, repro_torch.CompressionConfig(
+        codec=codec, **ADV), device="cpu")
+    evs = _my_spans()
+    counts = collections.Counter(e["name"] for e in evs)
+    assert {k: counts[k] for k in ("compressor.prepare", "pipeline.upload",
+                                   "pipeline.download")} == \
+        {"compressor.prepare": 1, "pipeline.upload": 1,
+         "pipeline.download": 1}
+    qp = [e for e in evs if e["name"] == "pipeline.quantize_predict"]
+    sel = [e for e in evs if e["name"] == "mop.select"]
+    assert len(sel) == len(qp) >= 1
+    for s_, q in zip(sel, qp):
+        assert _inside(s_, q)
+        assert s_["args"]["tiles"] == 6 * 3 * 4      # T * nbi * nbj
+    byname = {e["name"]: e for e in evs}
+    assert byname["compressor.prepare"]["args"]["shape"] == [6, 48, 64]
+    # ufp, vfp int64 and u, v float32
+    assert byname["pipeline.upload"]["args"]["bytes"] == 2 * (8 + 4) * u.size
+    assert byname["pipeline.download"]["args"]["bytes"] == u.size
+    order = [e["name"] for e in sorted(evs, key=lambda e: e["ts"])
+             if e["name"] in ("compressor.prepare", "pipeline.upload",
+                              "pipeline.derive_eb", "pipeline.download",
+                              "pipeline.symbolize")]
+    assert order == ["compressor.prepare", "pipeline.upload",
+                     "pipeline.derive_eb", "pipeline.download",
+                     "pipeline.symbolize"]
+
+
+@pytest.mark.parametrize("codec", ["host", "device"])
+def test_decode_spans(obs_state, codec):
+    """A monolithic decompress records the unpack, parse, SL decode and
+    reconstruction once each, and one ``decode.huffman`` inside the
+    unpack for each Huffman-coded section (device codec only)."""
+    u, v = _advective()
+    blob, _ = repro_torch.compress(u, v, repro_torch.CompressionConfig(
+        codec=codec, **ADV), device="cpu")
+    huff = _huffman_sections(blob)
+    assert (len(huff) > 0) == (codec == "device")
+    obs.enable()
+    trace.reset()
+    repro_torch.decompress(blob, device="cpu")
+    evs = _my_spans()
+    counts = collections.Counter(e["name"] for e in evs)
+    assert dict(counts) == {"decode.unpack": 1, "decode.parse": 1,
+                            "decode.sl": 1, "decode.reconstruct": 1,
+                            **({"decode.huffman": len(huff)} if huff
+                               else {})}
+    unpack = next(e for e in evs if e["name"] == "decode.unpack")
+    assert unpack["args"]["bytes"] == len(blob)
+    for e in evs:
+        if e["name"] == "decode.huffman":
+            assert _inside(e, unpack) and e["args"]["symbols"] == u.size
+    sl = next(e for e in evs if e["name"] == "decode.sl")
+    assert sl["args"]["blocks"] > 0
+    stages = [e["name"] for e in sorted(evs, key=lambda e: e["ts"])
+              if e["name"] != "decode.huffman"]
+    assert stages == ["decode.unpack", "decode.parse", "decode.sl",
+                      "decode.reconstruct"]
+
+
+def test_tiled_decode_spans_a_unit(obs_state):
+    """A tiled decompress decodes unit by unit: one ``decode.sl`` (and
+    one unpack, parse and reconstruction) a unit."""
+    u, v = _advective()
+    blob, st = repro_torch.compress(u, v, repro_torch.CompressionConfig(
+        tiling=repro_torch.TileGrid(tile_h=24, tile_w=32, window_t=3),
+        track_index=False, **ADV), device="cpu")
+    assert st["n_units"] > 1
+    obs.enable()
+    trace.reset()
+    repro_torch.decompress(blob, device="cpu")
+    counts = collections.Counter(e["name"] for e in obs.trace_events()
+                                 if e["ph"] == "X")
+    for name in ("decode.unpack", "decode.parse", "decode.sl",
+                 "decode.reconstruct"):
+        assert counts[name] == st["n_units"], name
+
+
+@pytest.mark.parametrize("codec", ["host", "device"])
+def test_obs_off_records_nothing_and_changes_nothing(obs_state, codec):
+    """With obs off, a compress and a decompress add no trace event and
+    no ``span.*`` histogram, and give the bytes and arrays they give
+    with obs on."""
+    u, v = _advective()
+    cfg = repro_torch.CompressionConfig(codec=codec, **ADV)
+
+    def spans():
+        return {k: m["count"] for k, m in obs.snapshot().items()
+                if k.startswith("span.")}
+
+    blobs, decs = {}, {}
+    for on in (True, False):
+        (obs.enable if on else obs.disable)()
+        trace.reset()
+        before = spans()
+        blobs[on], _ = repro_torch.compress(u, v, cfg, device="cpu")
+        decs[on] = repro_torch.decompress(blobs[on], device="cpu")
+        recorded = bool(obs.trace_events()) or spans() != before
+        assert recorded == on
+    assert blobs[True] == blobs[False]
+    for a, b in zip(decs[True], decs[False]):
+        assert np.array_equal(a, b)
+
+
+def test_zero_unix_us_aligns_spans_with_the_profiler(obs_state):
+    """``trace.zero_unix_us`` alone puts the trace's spans on
+    ``torch.profiler``'s axis: two spans half a second apart start
+    within 1 ms of the profiler ranges opened inside them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    obs.enable()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm"):   # the first range pays a set-up
+            pass
+        for name in ("clock.first", "clock.last"):
+            with obs.span(name), record_function(name):
+                time.sleep(0.25)
+    zero = trace.zero_unix_us()
+    ranges = {e.name(): e.start_ns() / 1e3
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("clock.")}
+    spans = {e["name"]: e["ts"] for e in obs.trace_events()}
+    assert set(ranges) == {"clock.first", "clock.last"}
+    for name, start in ranges.items():
+        assert abs(spans[name] + zero - start) < 1e3, name
