@@ -5,12 +5,15 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build   -- nvcc builds the four kernel sources from
-              src/repro_torch/csrc into build/repro_torch (parallel, one
-              nvcc per source; semilagrange.cu holds K3 and K4)
-2. kernels -- each of the five kernels against its plain PyTorch version
+1. build   -- nvcc builds the kernel sources of src/repro_torch/csrc
+              into build/repro_torch (parallel, one nvcc per source;
+              semilagrange.cu holds K3 and K4)
+2. kernels -- each of the six kernels against its plain PyTorch version
               on the card, bitwise, on inputs that force its edge
-              cases: K1 (both components in one launch, with and without
+              cases: K6 (huffman_decode, the device codec's Huffman
+              decode) on the valid, incomplete, damaged (stuck),
+              truncated and short streams of tests/huffman_cases.py,
+              symbols and status, and == the host decode; K1 (both components in one launch, with and without
               the quantized fields) at blocks 16 and 13, on rounding
               half-way points, |dfp| beyond 2^32 up to the int64 edge
               and g >= 2^32 (its 64-bit path), frame runs that do not
@@ -53,9 +56,13 @@ Phases (any failure exits non-zero; nothing is caught):
               to 0 just before, read just after: one sl_decode a
               decompress, verify rounds + 1 a compress, the same for K1,
               K4 and verify_faces, no per-frame sl_step, no face_crossed,
-              no dual_quantize outside K1), the pointwise bound,
+              no dual_quantize outside K1, two huffman_decode a
+              device-codec decompress and none otherwise), the
+              pointwise bound,
               FC_t = FC_s = 0, the host codec's bytes and the device
-              codec's decode == the host codec's decode checked, plus a
+              codec's decode == the host codec's decode checked, K6 ==
+              its plain version (symbols and status) on both Huffman
+              sections of the 64x512x512 device-codec container, plus a
               traced run with host-clock seconds per stage and a
               torch.profiler run with the device's busy share; then the
               same with an adaptive policy (mode="rel", the protected
@@ -393,6 +400,10 @@ KERNELS = [
     ("symbol_histogram", "entropy", "symbol_histogram",
      "src/repro_torch/csrc/entropy.cu",
      "src/repro/kernels/entropy/kernel.py:46"),
+    # the device codec's Huffman decode: the JAX package decodes on the
+    # host, so K6 replaces no Pallas function
+    ("huffman_decode", "entropy", "huffman_decode",
+     "src/repro_torch/csrc/huffman.cu", None),
     # the tiled path's unit-batched entries, and K2's face predicate (the
     # track index's crossed tet faces)
     ("lorenzo_residual_units", "lorenzo", "lorenzo_residual_units",
@@ -405,6 +416,11 @@ KERNELS = [
     ("face_crossed", "cptest", "face_crossed",
      "src/repro_torch/csrc/cptest.cu", "src/repro/kernels/cptest/kernel.py:102"),
 ]
+# the CUDA functions of a wrapper whose passes are not one
+# ``<wrapper>_kernel``: K6's (csrc/huffman.cu)
+KERNEL_PASSES = {"huffman_decode": tuple(
+    f"huffman_{p}_kernel(" for p in ("spec", "scan", "entries", "emit",
+                                     "fill"))}
 # kernels only the tiled path launches (the monolithic path must not)
 TILED_ONLY = ("lorenzo_residual_units", "verify_faces_units",
               "sl_decode_units", "face_crossed")
@@ -628,7 +644,80 @@ def phase_kernels(dev):
     say(f"K5 symbol_histogram == plain on (rows, n, offset) {SIZES['k5']} "
         "(random, small-symbol, all-0, all-255 and only->=4 rows; the "
         "workspace reused across them): bitwise")
+    huffman_cases_check(dev, k5, r5)
     unit_kernel_cases(dev, mods, rng)
+
+
+def huffman_cases():
+    """tests/huffman_cases.py (Huffman sections with the host decode's
+    answer; it imports no JAX)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.append(str(ROOT / "tests"))
+    import huffman_cases as hc
+    return hc
+
+
+def huffman_args(hc, ln, data, n, dev):
+    """K6's arguments for one section: the padded bytes and the tables
+    on the card, the bit count, n and the fill symbol."""
+    tab, fill = hc.tables(ln)
+    return (hc.padded(data).to(dev), torch.as_tensor(tab).to(dev),
+            8 * len(data), n, fill)
+
+
+def huffman_cases_check(dev, k6, r6):
+    """K6 == its plain version (symbols and status), one launch a call,
+    and the card route == the host decode (its symbols, or its
+    ContainerError) on every case of tests/huffman_cases.py."""
+    from repro_torch.core import entropy
+
+    hc = huffman_cases()
+    stuck = raised = 0
+    for name, make in hc.CASES.items():
+        ln, data, n = make()
+        args = huffman_args(hc, ln, data, n, dev)
+        n0 = k6.huffman_decode.launches
+        got = k6.huffman_decode(*args)
+        torch.cuda.synchronize()
+        assert k6.huffman_decode.launches == n0 + 1
+        assert same(got, r6.huffman_decode(*args)), f"K6 differs: {name}"
+        stuck += int(got[1][1]) == r6.STUCK
+        want, err = hc.host_decode(ln, data, n)
+        ln32 = np.asarray(ln, np.int32)
+        if err is not None:
+            try:
+                entropy.decode_on(dev, ln32, data, n)
+            except err:
+                raised += 1
+                continue
+            raise AssertionError(f"K6 route gave symbols on {name}, the "
+                                 f"host decode raises {err.__name__}")
+        assert np.array_equal(entropy.decode_on(dev, ln32, data, n), want), \
+            f"K6 route differs from the host decode on {name}"
+    say(f"K6 huffman_decode == plain (symbols and status) on "
+        f"{len(hc.CASES)} sections of tests/huffman_cases.py ({stuck} stuck "
+        f"chains); the card route == the host decode on each ({raised} "
+        "ContainerError): bitwise")
+
+
+def huffman_sections_check(tag, blob, dev):
+    """K6 == its plain version, symbols and status, on each Huffman
+    section of a device-codec container."""
+    from repro_torch.kernels.entropy import kernel as k6, ref as r6
+
+    hc = huffman_cases()
+    rows = []
+    for name, ln, data, n in hc.huff_sections(blob):
+        args = huffman_args(hc, ln, data, n, dev)
+        saved = k6.huffman_decode.launches
+        got = k6.huffman_decode(*args)
+        k6.huffman_decode.launches = saved
+        assert same(got, r6.huffman_decode(*args)), \
+            f"{tag}: K6 differs from plain on {name}"
+        rows.append((name, n, len(data), got[1].tolist()))
+    assert len(rows) == 2, f"{tag}: {len(rows)} Huffman sections"
+    say(f"{tag}: K6 == plain (symbols and status) on the Huffman sections "
+        f"(name, symbols, bytes, status) {rows}: bitwise")
 
 
 def unit_kernel_cases(dev, mods, rng):
@@ -1301,10 +1390,12 @@ def device_profile(fn):
 
 def kernel_rows(rows, kernels=KERNELS):
     """{wrapper name: (device ms, launches)} of this package's kernels
-    among profiler rows (the CUDA function is ``<wrapper>_kernel``)."""
+    among profiler rows (the CUDA function is ``<wrapper>_kernel``, or
+    the passes of KERNEL_PASSES)."""
     out = {}
     for name, _, attr, _, _ in kernels:
-        hits = [(ms, c) for n, ms, c in rows if f"{attr}_kernel(" in n]
+        keys = KERNEL_PASSES.get(name, (f"{attr}_kernel(",))
+        hits = [(ms, c) for n, ms, c in rows if any(k in n for k in keys)]
         out[name] = (sum(h[0] for h in hits), sum(h[1] for h in hits))
     return out
 
@@ -1375,8 +1466,8 @@ def check_run(tag, codec, run, u, v, dev, bound=None):
     assert fc["FC_t"] == 0 and fc["FC_s"] == 0, f"false cases {fc}"
     assert stats["sl_block_frac"] > 0, "no SL block was selected"
     enc, dec = run["enc_counts"], run["dec_counts"]
-    path = [n for n, *_ in KERNELS if n not in TILED_ONLY
-            and (codec == "device" or n != "symbol_histogram")]
+    path = [n for n, *_ in KERNELS if n not in TILED_ONLY and (
+        codec == "device" or n not in ("symbol_histogram", "huffman_decode"))]
     for name in path:
         assert enc[name] + dec[name] > 0, f"{tag}: {name} not launched"
     for name in TILED_ONLY:
@@ -1400,6 +1491,11 @@ def check_run(tag, codec, run, u, v, dev, bound=None):
     n_dq = enc.pop("dual_quantize")
     assert n_dq == 0, \
         f"{tag}: dual_quantize ran {n_dq} times beside K1 (MoP path)"
+    # K6 decodes the two symbol sections (u and v) of a CPTH1 container
+    want_k6 = 2 if codec == "device" else 0
+    assert enc["huffman_decode"] == 0 and dec["huffman_decode"] == want_k6, \
+        f"{tag}: huffman_decode launches {enc['huffman_decode']} / " \
+        f"{dec['huffman_decode']}, expected 0 / {want_k6}"
     if codec == "host":
         assert enc["symbol_histogram"] == 0
     else:
@@ -1438,6 +1534,8 @@ def phase_main(dev):
                     and np.array_equal(vr, host_dec[1]), \
                     f"{tag}: decode differs from the host codec's"
                 say(f"{tag}: decode == the host codec's decode, bitwise")
+                if (T, H, W) == SIZES["main"][1]:
+                    huffman_sections_check(tag, blob, dev)
             results.append({
                 "shape": (T, H, W), "codec": codec, "blob": blob,
                 "dec": run["dec"], "dec_s": run["dec_s"],
@@ -1588,9 +1686,15 @@ def check_tiled_launches(tag, codec, stats, enc, dec, groups):
     SL blocks, K2), a lone unit through the whole-field ones (K1 twice:
     X over the extension, residuals over the owned box)."""
     want = check_encode_launches(tag, codec, stats, enc, groups)
-    assert all(dec[k] == 0 for k in want if k in dec and k != "sl_decode") \
+    assert all(dec[k] == 0 for k in want if k in dec
+               and k not in ("sl_decode", "huffman_decode")) \
         and 0 < dec["sl_decode"] <= stats["n_units"], \
         f"{tag}: decompress launches {dec}"
+    # K6 decodes each unit's two symbol sections on a device-codec decode
+    want_k6 = 2 * stats["n_units"] if codec == "device" else 0
+    assert dec["huffman_decode"] == want_k6, \
+        f"{tag}: huffman_decode launches {dec['huffman_decode']}, " \
+        f"expected {want_k6}"
 
 
 def check_encode_launches(tag, codec, stats, enc, groups):
@@ -1609,6 +1713,7 @@ def check_encode_launches(tag, codec, stats, enc, groups):
         "verify_faces": v["single"],
         "face_crossed": n_seg,
         "symbol_histogram": n_ent if codec == "device" else 0,
+        "huffman_decode": 0,
         "sl_step": 0,
         "dual_quantize": 0,
     }
@@ -2227,6 +2332,8 @@ def phase_legacy(dev):
         assert enc["face_crossed"] >= rounds and enc["verify_faces"] == 0, \
             ran
         assert (enc["symbol_histogram"] >= 1) == (codec == "device"), ran
+        assert enc["huffman_decode"] == 0 and dec["huffman_decode"] == (
+            2 if codec == "device" else 0), ran
         assert all(k.endswith("_xla") for k in ran if k.startswith("sl_")), \
             f"{tag}: SL launches {ran}, expected the xla kernels only"
         # the fused compress of the same config, for its seconds
@@ -2711,7 +2818,7 @@ def check_path_launches(tag, codec, counts, arm="numpy", H=None):
              ("K3", tuple(f"{b}{x}" for b in SL_BASES[:2] for x in sfx)),
              ("K4", tuple(f"sl_step_batched{x}" for x in sfx))]
     if codec == "device":
-        pairs.append(("K5", ("symbol_histogram",)))
+        pairs += [("K5", ("symbol_histogram",)), ("K6", ("huffman_decode",))]
     for k, names in pairs:
         assert sum(counts[n] for n in names) > 0, \
             f"{tag}: {k} ({' / '.join(names)}) not launched"
@@ -3882,6 +3989,11 @@ def bound_terms(name, args, out):
         # not counted (the card's peak table has no scalar integer rate)
         sym = args[0]
         return sym.numel() + sym.shape[0] * 256 * 4, 0
+    if name == "huffman_decode":
+        # the bitstream read once, the n uint8 symbols written once (the
+        # 9 KiB of tables and the speculative re-reads not counted)
+        nbits, n = args[2], args[3]
+        return (nbits + 7) // 8 + n, 0
     if name == "sl_decode":
         # per pixel 16 B read (c2 or res) and 16 B written, plus the
         # blockmap and flags; the stepper's operations on the pixels of
@@ -3980,9 +4092,10 @@ def phase_table(main, tiled_run, steppers, kernels=None):
             lambda: [kern(*args) for _ in range(50)])
         dev_ms, n = kernel_rows(prof_rows, [(name, mod, attr, src,
                                              replaces)])[name]
-        # the kernel's own device time; the event-timed call time where
-        # the profiler sees no device activity
-        ms = dev_ms / n if n else call_ms
+        # the kernel's own device time (all passes of a call); the
+        # event-timed call time where the profiler sees no device activity
+        ms = (dev_ms / (50 if name in KERNEL_PASSES else n) if n
+              else call_ms)
         kern.launches = saved
         nbytes, ops = bound_terms(name, args, want)
         base, variant = split_variant(name)

@@ -206,8 +206,8 @@ class ContainerSource:
             self.header()
         return self._container_id
 
-    def unit(self, entry: dict):
-        return encode.read_tiled_unit_ranged(self.read, entry)
+    def unit(self, entry: dict, device=None):
+        return encode.read_tiled_unit_ranged(self.read, entry, device)
 
 
 # ----------------------------------------------------------------------
@@ -348,7 +348,7 @@ def fetch_decoded_units(source: ContainerSource, ex, entries: list,
                 continue
             try:
                 encode.check_unit_frame(frame, e)
-                uh, secs = encode.unpack(frame)
+                uh, secs = encode.unpack(frame, ex.device)
                 u_rec, v_rec = ex.decode_unit(uh, secs)
             except encode.ContainerError as exc:
                 if failures is None:

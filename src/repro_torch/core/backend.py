@@ -8,7 +8,8 @@ fallback between the two.
 Determinism contract:
 
 * the integer ops (Lorenzo residual, SoS predicate and the verify round
-  built on it, symbol histogram) are exact and equal on every device;
+  built on it, symbol histogram, Huffman decode) are exact and equal on
+  every device;
 * the SL stepper is one of the JAX package's three, named by the
   container header's ``sl_backend`` (``SL_BACKENDS``; core/predictors.py
   has their arithmetic): "numpy" (f64, every operation rounded once, in
@@ -154,6 +155,15 @@ def symbol_histogram(sym):
     """Per-row 256-bin histogram of a (B, n) uint8 symbol stack.  Returns
     (B, 256) int32 exact counts."""
     return _ent_ops.symbol_histogram(sym.contiguous())
+
+
+def huffman_decode(ln, codes, data: bytes, n: int, device):
+    """Canonical Huffman decode of one section's bytes on ``device`` (K6
+    on CUDA), with the checked length table ``ln`` and its canonical
+    ``codes``.  Returns (n uint8 symbols on ``device``, the symbols
+    before the stream's end, the bits past the end where the chain
+    stopped or None where it got stuck)."""
+    return _ent_ops.huffman_decode_section(ln, codes, data, n, device)
 
 
 # ----------------------------------------------------------------------

@@ -214,7 +214,7 @@ def decompress(blob: bytes, backend: Optional[str] = None, *, device=None):
         return tiling.decompress_tiled(blob, backend=backend, device=device)
     dev = resolve_device(device)
     refuse_plain_on_card(backend, dev)
-    header, sections = encode.unpack(blob)
+    header, sections = encode.unpack(blob, dev)
     version = header.get("version", 1)
     if not isinstance(version, int) \
             or version > pipeline.FORMAT_VERSION_ADAPTIVE:

@@ -324,6 +324,10 @@ def _huffman_decode_scalar(peek, plen, maxlen, data, n):
 # the peek table is capped at 2^24 entries; deeper tables take the
 # scalar path
 _VEC_MAXLEN = 24
+# streams of fewer symbols take the scalar path too, which raises (its
+# window slice comes up short) once a symbol starts past the stream's
+# last bit; the vectorized path reads the zero padding there instead
+SCALAR_BELOW = 2048
 _STRIDE_LOG2 = 6
 
 
@@ -340,7 +344,7 @@ def huffman_decode(lengths, data, n, _chunk=1 << 22):
     codes, _ = canonical_codes(lengths)
     maxlen = int(lengths.max()) if lengths.max() > 0 else 1
     peek, plen = _peek_tables(lengths, codes, maxlen)
-    if maxlen > _VEC_MAXLEN or n < 2048:
+    if maxlen > _VEC_MAXLEN or n < SCALAR_BELOW:
         return _huffman_decode_scalar(peek, plen, maxlen, data, n)
 
     raw = np.frombuffer(data, dtype=np.uint8)
@@ -471,8 +475,10 @@ def _pack_huf(header: dict, sections: dict) -> bytes:
     return MAGIC_HUF + struct.pack("<I", len(hdr)) + hdr + body.getvalue()
 
 
-def _decode_section(name: str, meta: dict, raw: bytes) -> np.ndarray:
-    """One section's bytes -> array, honoring its per-section ``enc``."""
+def _decode_section(name: str, meta: dict, raw: bytes,
+                    device=None) -> np.ndarray:
+    """One section's bytes -> array, honoring its per-section ``enc``; a
+    Huffman section decodes on ``device`` (``entropy.decode_symbols``)."""
     enc = meta.get("enc")
     try:
         dtype, shape = meta["dtype"], meta["shape"]
@@ -484,7 +490,7 @@ def _decode_section(name: str, meta: dict, raw: bytes) -> np.ndarray:
                     f"entries, expected 256")
             n = int(np.prod(shape, dtype=np.int64))
             from . import entropy
-            arr = entropy.decode_symbols(lengths, raw, n)
+            arr = entropy.decode_symbols(lengths, raw, n, device)
         elif enc == "zlib":
             arr = np.frombuffer(zlib.decompress(raw), dtype=np.dtype(dtype))
         elif enc is None:
@@ -499,8 +505,10 @@ def _decode_section(name: str, meta: dict, raw: bytes) -> np.ndarray:
         raise ContainerError(f"corrupt section {name!r}: {e}") from e
 
 
-def unpack(blob: bytes):
-    """Container bytes -> (header dict, {name: numpy array})."""
+def unpack(blob: bytes, device=None):
+    """Container bytes -> (header dict, {name: numpy array}).  A CPTH1
+    container's Huffman sections decode on ``device`` (default: the
+    host)."""
     with obs.span("decode.unpack", bytes=len(blob)):
         magic = bytes(blob[: len(MAGIC)])
         if magic == MAGIC_TILED:
@@ -509,7 +517,7 @@ def unpack(blob: bytes):
                 "repro_torch.decompress (core/tiling.py::decompress_tiled) "
                 "or tiled_header / read_tiled_unit")
         if magic == MAGIC_HUF:
-            return _parse_payload(bytes(blob[len(MAGIC_HUF):]))
+            return _parse_payload(bytes(blob[len(MAGIC_HUF):]), device)
         if magic not in (MAGIC, MAGIC_ZLIB):
             raise ContainerError(
                 "not a CPTZ/CPTL/CPTH container (bad magic)")
@@ -518,7 +526,7 @@ def unpack(blob: bytes):
                                                codec))
 
 
-def _parse_payload(payload: bytes):
+def _parse_payload(payload: bytes, device=None):
     if len(payload) < 4:
         raise ContainerError("truncated container: missing header length")
     (hlen,) = struct.unpack("<I", payload[:4])
@@ -556,7 +564,8 @@ def _parse_payload(payload: bytes):
         if "dtype" not in meta or "shape" not in meta:
             raise ContainerError(
                 f"malformed section entry {name!r}: missing dtype/shape")
-        sections[name] = _decode_section(name, meta, payload[lo:hi])
+        sections[name] = _decode_section(name, meta, payload[lo:hi],
+                                         device)
     return header, sections
 
 
@@ -727,8 +736,9 @@ def check_unit_frame(frame: bytes, entry: dict) -> None:
             f"(bit rot or torn write)")
 
 
-def read_tiled_unit_ranged(read, entry: dict):
-    """Decode one unit frame through a range reader."""
+def read_tiled_unit_ranged(read, entry: dict, device=None):
+    """Decode one unit frame through a range reader (its Huffman sections
+    on ``device``, default the host)."""
     frame = read(entry["off"], entry["len"])
     if len(frame) != entry["len"]:
         raise ContainerError(
@@ -736,7 +746,7 @@ def read_tiled_unit_ranged(read, entry: dict):
             f"{entry['off'] + entry['len']}) returned {len(frame)} bytes "
             f"(truncated container?)")
     check_unit_frame(frame, entry)
-    return unpack(frame)
+    return unpack(frame, device)
 
 
 def read_tiled_unit(blob: bytes, entry: dict):

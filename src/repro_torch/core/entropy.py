@@ -20,10 +20,11 @@ and v streams of a field are two rows):
 Each row's table depends only on that row's counts, so batched and
 sequential encodes give the same bytes, and every step is integer-exact,
 so the bytes do not depend on the device and equal the JAX package's
-(its ``entropy.encode_streams``).  Decode needs no device: the length
-table rides in the section index (encode.HuffSection) and
-``decode_symbols`` replays the stream through the host
-``encode.huffman_decode``.
+(its ``entropy.encode_streams``).  The length table rides in the section
+index (encode.HuffSection).  ``decode_symbols`` replays a stream on the
+device the decode runs on: with none or the CPU through the host
+``encode.huffman_decode``, on CUDA through K6 (``backend.huffman_decode``),
+which gives the host decode's symbols, or its error, on every input.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 
 from .. import obs
 from . import backend
-from .encode import ESC, ContainerError, HuffSection, huffman_decode
+from .encode import (ESC, SCALAR_BELOW, ContainerError, HuffSection,
+                     canonical_codes, huffman_decode)
 
 L_MAX = 16           # code length limit (static worst-case pack buffer)
 
@@ -78,10 +80,13 @@ def build_tables_batch(hist) -> tuple[np.ndarray, np.ndarray]:
     return ln, codes.astype(np.uint32)
 
 
-def decode_symbols(lengths, data, n) -> np.ndarray:
+def decode_symbols(lengths, data, n, device=None) -> np.ndarray:
     """Inverse of the bitpack: lengths uint8[256] (from the section index)
-    + packed bits -> uint8 symbols.  Host only."""
-    with obs.span("decode.huffman", symbols=n):
+    + packed bits -> n uint8 symbols, on the host.  The table checks run
+    on the host first; with a CUDA ``device`` the stream is decoded there
+    (``decode_on``), else by the host ``huffman_decode``."""
+    dev = torch.device("cpu" if device is None else device)
+    with obs.span("decode.huffman", symbols=n, device=str(dev)):
         if n == 0:
             return np.empty(0, dtype=np.uint8)
         ln = np.asarray(lengths, np.uint8).astype(np.int32)
@@ -95,7 +100,29 @@ def decode_symbols(lengths, data, n) -> np.ndarray:
         if kraft > (1 << ml):
             raise ContainerError(
                 "invalid huffman table: Kraft sum exceeds 1")
-        return huffman_decode(ln, data, n)
+        if dev.type == "cpu":
+            return huffman_decode(ln, data, n)
+        obs.count("decode.huffman_card", 1)
+        return decode_on(dev, ln, data, n)
+
+
+def decode_on(dev, ln, data, n) -> np.ndarray:
+    """One section's decode on ``dev`` (K6 on CUDA, its plain version on
+    the CPU) held to the host ``huffman_decode``: the symbols come back
+    as a host array, and the host decode's ContainerError is raised
+    where it would raise."""
+    codes, _ = canonical_codes(ln)
+    sym, total, past = backend.huffman_decode(ln, codes, data, n, dev)
+    # below SCALAR_BELOW symbols the host decode takes its scalar path,
+    # whose window slice fails once a symbol starts past the stream's
+    # last bit: a chain that ended `past` bits beyond it starts symbol
+    # total + 1 there, inside the stream only where past == 0
+    if (n < SCALAR_BELOW and past is not None and n > total
+            and not (past == 0 and n == total + 1)):
+        raise ContainerError(
+            f"huffman stream of {8 * len(data)} bits ends after {total} "
+            f"of {n} symbols")
+    return sym.cpu().numpy()
 
 
 # ----------------------------------------------------------------------

@@ -1231,7 +1231,7 @@ def decompress_tiled(src, region=None, backend=None, degraded=False, *,
             def decoded_iter():
                 for entry in entries:
                     try:
-                        uh, secs = source.unit(entry)
+                        uh, secs = source.unit(entry, ex.device)
                         u_rec, v_rec = ex.decode_unit(uh, secs)
                     except encode.ContainerError as e:
                         if failures is None:

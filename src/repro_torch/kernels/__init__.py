@@ -9,7 +9,7 @@ the tensor's device: CUDA -> kernel, CPU -> plain version;
 from . import _build
 from .. import perfflags
 
-KERNELS = ("lorenzo", "cptest", "semilagrange", "entropy")
+KERNELS = ("lorenzo", "cptest", "semilagrange", "entropy", "huffman")
 
 
 def build_all() -> dict:

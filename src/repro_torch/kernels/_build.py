@@ -38,6 +38,7 @@ SOURCES = {
     # numpy stepper does: no fused multiply-add contraction
     "semilagrange": ["-fmad=false"],
     "entropy": [],
+    "huffman": [],
 }
 
 _LOCK = threading.Lock()
